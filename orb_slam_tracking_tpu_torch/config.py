@@ -1,0 +1,117 @@
+"""Configuration of the tracking slice, as frozen dataclasses.
+
+These are the port's own copies of the JAX package's ``CameraConfig``,
+``OrbConfig``, ``MatcherConfig`` and ``TrackerConfig``, cut to the fields
+the tracking step reads, with the same names, defaults, checks and derived
+shapes. The port imports nothing of the JAX package, so it cannot share
+them; ``tests/test_torch_track.py`` holds the two sets equal. The YAML
+loader and the other fields come with the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+__all__ = ["CameraConfig", "MatcherConfig", "OrbConfig", "TrackerConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """Pinhole camera with Brown radial-tangential distortion; the image
+    size is part of the config because every shape downstream is fixed."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    k1: float = 0.0
+    k2: float = 0.0
+    p1: float = 0.0
+    p2: float = 0.0
+    width: int = 640
+    height: int = 480
+
+    def __post_init__(self):
+        if self.fx <= 0 or self.fy <= 0:
+            raise ValueError(f"focal lengths must be positive, got {self.fx}, {self.fy}")
+        if self.width <= 0 or self.height <= 0:
+            raise ValueError("image size must be positive")
+
+    @property
+    def has_distortion(self) -> bool:
+        return any(abs(v) > 0 for v in (self.k1, self.k2, self.p1, self.p2))
+
+
+@dataclasses.dataclass(frozen=True)
+class OrbConfig:
+    """ORB extraction operating point: 1000 features, scale 1.2, 8 levels,
+    FAST thresholds 20/7. ``max_keypoints`` is the fixed capacity of every
+    keypoint tensor (0 = the next multiple of 256 >= ``n_features``)."""
+
+    n_features: int = 1000
+    scale_factor: float = 1.2
+    n_levels: int = 8
+    ini_th_fast: int = 20
+    min_th_fast: int = 7
+    score_type: str = "fast"      # "harris" is not ported yet
+    max_keypoints: int = 0
+    fast_cell_size: int = 35      # dual-threshold fallback cell, px
+    select_cell_size: int = 12    # top-1-per-cell selection grid, px
+    use_atlas: bool = True        # False (per-level path) is not ported yet
+
+    def __post_init__(self):
+        if self.n_levels < 1:
+            raise ValueError("n_levels must be >= 1")
+        if self.scale_factor <= 1.0:
+            raise ValueError("scale_factor must be > 1")
+        if self.score_type not in ("fast", "harris"):
+            raise ValueError(
+                f"score_type must be 'fast' or 'harris', got {self.score_type!r}")
+        if self.max_keypoints == 0:
+            cap = ((self.n_features + 255) // 256) * 256
+            object.__setattr__(self, "max_keypoints", cap)
+        if self.max_keypoints < self.n_features:
+            raise ValueError("max_keypoints must be >= n_features")
+
+    def features_per_level(self) -> Tuple[int, ...]:
+        """Geometric per-level budget ``n*(1-1/s)/(1-(1/s)^L)`` at level 0,
+        scaled by 1/s per level, the remainder to the top level."""
+        inv = 1.0 / self.scale_factor
+        n_desired = self.n_features * (1 - inv) / (1 - inv ** self.n_levels)
+        budget = []
+        total = 0
+        for _ in range(self.n_levels - 1):
+            n = int(round(n_desired))
+            budget.append(n)
+            total += n
+            n_desired *= inv
+        budget.append(max(self.n_features - total, 0))
+        return tuple(budget)
+
+    def level_scales(self) -> Tuple[float, ...]:
+        return tuple(self.scale_factor ** i for i in range(self.n_levels))
+
+    def level_shapes(self, height: int, width: int) -> Tuple[Tuple[int, int], ...]:
+        """(H, W) of each pyramid level, rounded like ``cv::resize``."""
+        return tuple((int(round(height / s)), int(round(width / s)))
+                     for s in self.level_scales())
+
+
+@dataclasses.dataclass(frozen=True)
+class MatcherConfig:
+    """Descriptor matching: the largest Hamming distance of a match."""
+
+    th_high: int = 100
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackerConfig:
+    """The tracking step's knobs: the stage-1 projection radius (scaled
+    per keypoint octave), the tight re-match radius, and the pose LM's
+    rounds of iterations."""
+
+    projection_radius: float = 15.0
+    local_map_radius: float = 3.0
+    pose_opt_rounds: int = 2
+    pose_opt_iters: int = 6
