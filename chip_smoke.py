@@ -9,17 +9,29 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels of ``orb_slam_tracking_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the main path (exact equality), with the median of 25 timed runs;
+   of the main paths (exact equality), with the median of 25 timed runs,
+   the least time the card could take for the same work (bytes over
+   3.35 TB/s or operations over 67 T/s, the larger) and, where one
+   PyTorch call computes the same function, that call's time;
 4. the fused tracking step at the ``entry()`` operating point (640x480,
    1000 keypoints, an 8192-point map): launch counts per frame, output
    shapes and finiteness, ms per frame;
 5. tracking a rendered sequence: accuracy against ground truth, and the
-   same frames through the plain versions on the card.
+   same frames through the plain versions on the card;
+6. extraction of the entry image with the disc moments taken at the
+   keypoints (the port's path) and from the dense ``moment_maps`` pass:
+   identical keypoints, angles and descriptors, and device ms per
+   extraction each way;
+7. two-view initialization at the ``init_entry()`` operating point (a
+   rendered 640x480 pair, 2000 keypoints, 200 and 2000 RANSAC hypotheses):
+   launch counts per pair, success and pose against
+   ground truth, ms per pair, the host syncs it makes, and the same pair
+   through the plain versions on the card.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the one
-before it a JSON object of per-kernel results; the last line is
-``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
-device the script raises.
+before it a JSON object of per-kernel results (launches counted on each
+path); the last line is ``{"ok": true, "device": {...}}``. There is no CPU
+path: without a CUDA device the script raises.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +51,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 FRAMES = 10  # timed entry-point frames in phase 4
 RUNS = 25    # timed runs per kernel in phase 3
+PAIRS = 10   # timed init pairs in phase 7
+# H100 SXM peaks at 700 W (published data-sheet figures): device memory, and
+# 32-bit arithmetic outside the tensor cores (the kernels' ops are f32
+# adds, subs, muls, min/max and int32 xor/popcount)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INIT_POSE_BOUNDS_DEG = (0.5, 5.0)  # rotation error, translation direction error
 
 
 def log(phase: str, msg: str) -> None:
@@ -61,6 +81,32 @@ def time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound_ms(n_bytes: float, n_ops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, runs: int = RUNS) -> float:
+    """Device time of one ``fn()`` in ms: the kernels, copies and fills of
+    ``runs`` calls in a ``torch.profiler`` trace, summed, over ``runs``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us == 0:
+        raise RuntimeError("the profiler trace holds no device events")
+    return us / 1e3 / runs
+
+
 def import_port() -> None:
     import orb_slam_tracking_tpu_torch as port
 
@@ -71,17 +117,22 @@ def import_port() -> None:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the main path's kernel calls to the plain versions."""
-    from orb_slam_tracking_tpu_torch.ops import atlas, brief, fast, hamming, proj_matcher
+    """Route the main paths' kernel calls to the plain versions."""
+    from orb_slam_tracking_tpu_torch.ops import (
+        atlas, brief, fast, hamming, matcher, orientation, proj_matcher)
 
-    saved = (atlas.fast_score, brief.brief_words, proj_matcher.hamming_matrix)
+    saved = (atlas.fast_score, atlas.moments_at, brief.brief_words,
+             proj_matcher.hamming_matrix, matcher.hamming_matrix)
     atlas.fast_score = fast.fast_score_reference
+    atlas.moments_at = orientation.moments_at_reference
     brief.brief_words = brief.brief_words_reference
     proj_matcher.hamming_matrix = hamming.hamming_matrix_reference
+    matcher.hamming_matrix = hamming.hamming_matrix_reference
     try:
         yield
     finally:
-        atlas.fast_score, brief.brief_words, proj_matcher.hamming_matrix = saved
+        (atlas.fast_score, atlas.moments_at, brief.brief_words,
+         proj_matcher.hamming_matrix, matcher.hamming_matrix) = saved
 
 
 def phase_device():
@@ -107,83 +158,177 @@ def phase_build():
 
 
 def phase_kernels(device):
-    from orb_slam_tracking_tpu_torch.entry import entry
-    from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming
+    """Each kernel against its plain version at the main paths' shapes:
+    all four at the tracking step's, and B2-B4 at the init pair's too (B1
+    sees the same canvas on both)."""
+    import torch.nn.functional as F
+
+    from orb_slam_tracking_tpu_torch.config import OrbConfig, SystemConfig
+    from orb_slam_tracking_tpu_torch.entry import ENTRY_CAMERA, entry
+    from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming, orientation
     from orb_slam_tracking_tpu_torch.ops.atlas import atlas_layout, build_atlas
     from orb_slam_tracking_tpu_torch.ops.extractor import ExtractorConstants
-    from orb_slam_tracking_tpu_torch.ops.pattern import EDGE_THRESHOLD
+    from orb_slam_tracking_tpu_torch.ops.pattern import EDGE_THRESHOLD, HALF_PATCH_SIZE
     from orb_slam_tracking_tpu_torch.ops.pyramid import gaussian_blur
-    from orb_slam_tracking_tpu_torch.config import OrbConfig
 
     _, args = entry(device)
     image, map_desc = args[0], args[2]
     cfg = OrbConfig(n_features=1000)
+    init_cfg = SystemConfig(camera=ENTRY_CAMERA, orb=cfg).init_orb  # 2000 keypoints
     lay = atlas_layout(480, 640, cfg)
     consts = ExtractorConstants(480, 640, cfg, device)
     canvas = build_atlas(image, lay, consts.resize_mats)
-    results = []
+    g = torch.Generator(device=device).manual_seed(0)
 
-    def check(name, source, replaces, kern, plain):
-        got, ref = kern(), plain()
+    def stacked(x):
+        return torch.stack(x) if isinstance(x, tuple) else x
+
+    def check(name, kern, plain, work, library=None):
+        """-> the kernel's numbers: exact against plain; device ms per call
+        from the profiler (``ms``) and CUDA-event ms per call, which holds
+        the wrapper's host work too (``call_ms``); the bound."""
+        got, ref = stacked(kern()), stacked(plain())
         torch.cuda.synchronize()
         if got.shape != ref.shape or got.dtype != ref.dtype:
             raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs {ref.shape}/{ref.dtype}")
         err = float((got.double() - ref.double()).abs().max())
         if not torch.equal(got, ref):
             raise AssertionError(f"{name}: kernel differs from plain, max abs err {err}")
-        ms, plain_ms = time_ms(kern), time_ms(plain)
-        log("kernels", f"{name} {tuple(got.shape)}: exact; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms (median of {RUNS})")
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms})
+        fns = {"": kern, "plain_": plain}
+        if library is not None:
+            fns["library_"] = library
+        t = {}
+        for key, fn in fns.items():
+            t[f"{key}ms"] = device_ms(fn, RUNS)
+            t[f"{key}call_ms"] = time_ms(fn)
+        b_ms, b_by = bound_ms(*work)
+        lib = "" if library is None else (
+            f"; library {t['library_ms']:.4f} / {t['library_call_ms']:.4f} ms (max abs "
+            f"diff to the kernel {float((stacked(library()).double() - got.double()).abs().max()):.3g})")
+        log("kernels", f"{name} {tuple(got.shape)}: exact; device / call ms: kernel "
+            f"{t['ms']:.4f} / {t['call_ms']:.4f}, plain {t['plain_ms']:.4f} / "
+            f"{t['plain_call_ms']:.4f}{lib} (profiler over {RUNS} calls / median of "
+            f"{RUNS} CUDA-event calls); bound {b_ms:.4f} ms ({b_by}: {work[0]:.4g} B, "
+            f"{work[1]:.4g} ops)")
+        t.setdefault("library_ms", None)
+        return {"max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
+                "shape": list(got.shape)}
 
-    check("fast_score", "orb_slam_tracking_tpu_torch/csrc/fast_score.cu",
-          "orb_slam_tracking_tpu/ops/pallas_kernels.py:474",
-          lambda: fast.fast_score(canvas, EDGE_THRESHOLD),
-          lambda: fast.fast_score_reference(canvas, EDGE_THRESHOLD))
+    def place(ocfg):
+        """Keypoints as the path places them: each level's budget at random
+        eligible pixels of its block (atlas coords, float [N, 2])."""
+        xy = []
+        for (hl, wl), off, budget in zip(lay.level_shapes, lay.row_offsets,
+                                         ocfg.features_per_level()):
+            x = torch.randint(16, wl - 16, (budget,), generator=g, device=device)
+            y = torch.randint(16, hl - 16, (budget,), generator=g, device=device)
+            xy.append(torch.stack([x, y + off], -1).float())
+        return torch.cat(xy)
 
-    # keypoints as the path places them: each level's budget at random
-    # eligible pixels of its block, random angles
-    g = torch.Generator(device=device).manual_seed(0)
-    xy = []
-    for (hl, wl), off, budget in zip(lay.level_shapes, lay.row_offsets,
-                                     cfg.features_per_level()):
-        x = torch.randint(16, wl - 16, (budget,), generator=g, device=device)
-        y = torch.randint(16, hl - 16, (budget,), generator=g, device=device)
-        xy.append(torch.stack([x, y + off], -1).float())
-    xy = torch.cat(xy)
-    angle = torch.rand(xy.shape[0], generator=g, device=device) * 360.0
+    def n_distinct(idx):
+        return float(torch.unique(idx).numel())
+
+    # B1: every canvas pixel read once, every score written once; per pixel
+    # 16 differences and 16 x (2 x 8 min + 2 max) + 1 max
+    score_numel = (canvas.shape[0] - 2 * EDGE_THRESHOLD) * (canvas.shape[1] - 2 * EDGE_THRESHOLD)
+    b1 = check("fast_score", lambda: fast.fast_score(canvas, EDGE_THRESHOLD),
+               lambda: fast.fast_score_reference(canvas, EDGE_THRESHOLD),
+               (4.0 * (canvas.numel() + score_numel), 305.0 * score_numel))
+
+    # B2: the distinct pixels the samples touch, both coordinate arrays,
+    # the words; one compare per pair
     blurred = torch.round(gaussian_blur(canvas, consts.gauss)).contiguous()
-    sy, sx = brief.brief_coords(xy, angle, consts.pattern_xy, *blurred.shape)
-    check("brief_words", "orb_slam_tracking_tpu_torch/csrc/brief_words.cu",
-          "orb_slam_tracking_tpu/ops/pallas_kernels.py:288",
-          lambda: brief.brief_words(blurred, sy, sx),
-          lambda: brief.brief_words_reference(blurred, sy, sx))
 
-    kp_desc = torch.randint(-2**31, 2**31, (cfg.max_keypoints, 8), generator=g,
-                            device=device, dtype=torch.int64).to(torch.int32)
-    check("hamming_matrix", "orb_slam_tracking_tpu_torch/csrc/hamming_matrix.cu",
-          "orb_slam_tracking_tpu/ops/pallas_kernels.py:58",
-          lambda: hamming.hamming_matrix(map_desc, kp_desc),
-          lambda: hamming.hamming_matrix_reference(map_desc, kp_desc))
-    return results
+    def b2_at(ocfg):
+        xy = place(ocfg)
+        angle = torch.rand(xy.shape[0], generator=g, device=device) * 360.0
+        sy, sx = brief.brief_coords(xy, angle, consts.pattern_xy, *blurred.shape)
+        n = xy.shape[0]
+        work = (4.0 * (n_distinct(sy.long() * blurred.shape[1] + sx) + 2 * sy.numel() + 8 * n),
+                256.0 * n)
+        return check("brief_words", lambda: brief.brief_words(blurred, sy, sx),
+                     lambda: brief.brief_words_reference(blurred, sy, sx), work)
+
+    b2 = b2_at(cfg)
+    b2["init_shape"] = b2_at(init_cfg)
+
+    # B3: both descriptor sets read, the matrix written; 8 x (xor, popcount,
+    # add) per entry
+    def b3_at(a, n):
+        b = torch.randint(-2**31, 2**31, (n, 8), generator=g, device=device,
+                          dtype=torch.int64).to(torch.int32)
+        work = (32.0 * (a.shape[0] + n) + 4.0 * a.shape[0] * n, 24.0 * a.shape[0] * n)
+        return check("hamming_matrix", lambda: hamming.hamming_matrix(a, b),
+                     lambda: hamming.hamming_matrix_reference(a, b), work)
+
+    b3 = b3_at(map_desc, cfg.max_keypoints)
+    init_desc = torch.randint(-2**31, 2**31, (init_cfg.max_keypoints, 8), generator=g,
+                              device=device, dtype=torch.int64).to(torch.int32)
+    b3["init_shape"] = b3_at(init_desc, init_cfg.max_keypoints)
+
+    # B4 at both paths' keypoints: the distinct disc pixels, the centres,
+    # both moments; per keypoint 5 ops per (row, dx) pair and 91 for the
+    # row sums. The nearest PyTorch call: the canvas convolved (TF32 off)
+    # with the two disc-weighted 31 x 31 filters, read at the keypoints
+    umax = consts.umax
+    r = HALF_PATCH_SIZE
+    disc = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-umax[abs(dy)], umax[abs(dy)] + 1)]
+    dyx = torch.tensor(disc, device=device)
+    ops_per_kp = 5 * sum(umax[abs(dy)] for dy in range(-r, r + 1)) + 91
+    w = torch.zeros(2, 1, 2 * r + 1, 2 * r + 1, device=device)
+    for dy, dx in disc:
+        w[0, 0, dy + r, dx + r] = dx
+        w[1, 0, dy + r, dx + r] = dy
+    m10, m01 = orientation.moment_maps(canvas, umax)
+
+    def b4_at(ocfg):
+        xy = place(ocfg).long()
+        yc = (xy[:, 1] + EDGE_THRESHOLD).to(torch.int32)
+        xc = (xy[:, 0] + EDGE_THRESHOLD).to(torch.int32)
+        n = yc.shape[0]
+        pix = (yc.long()[:, None] + dyx[:, 0]) * canvas.shape[1] + xc.long()[:, None] + dyx[:, 1]
+        work = (4.0 * (n_distinct(pix) + 4 * n), float(ops_per_kp * n))
+        yl, xl = yc.long() - r, xc.long() - r
+
+        def conv_at():
+            out = F.conv2d(canvas[None, None], w)[0]
+            return out[:, yl, xl]
+
+        k = check("moments_at", lambda: orientation.moments_at(canvas, yc, xc, umax),
+                  lambda: orientation.moments_at_reference(canvas, yc, xc, umax),
+                  work, library=conv_at)
+        yd, xd = yc.long() - EDGE_THRESHOLD, xc.long() - EDGE_THRESHOLD
+        dense = torch.stack([m10[yd, xd], m01[yd, xd]])
+        if not torch.equal(torch.stack(orientation.moments_at(canvas, yc, xc, umax)), dense):
+            raise AssertionError("moments_at differs from the dense moment_maps at its pixels")
+        log("kernels", f"moments_at equals the dense moment_maps at its {n} keypoints")
+        return k
+
+    b4 = b4_at(cfg)
+    b4["init_shape"] = b4_at(init_cfg)
+
+    # each kernel's source and the line of the TPU kernel it replaces
+    return [{"name": name, "route": "cuda",
+             "source": f"orb_slam_tracking_tpu_torch/csrc/{name}.cu",
+             "replaces": f"orb_slam_tracking_tpu/ops/pallas_kernels.py:{line}", **k}
+            for name, line, k in (("fast_score", 474, b1), ("brief_words", 288, b2),
+                                  ("hamming_matrix", 58, b3), ("moments_at", 430, b4))]
+
+
+def _wrappers():
+    from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming, orientation
+
+    return {"fast_score": fast.fast_score, "brief_words": brief.brief_words,
+            "moments_at": orientation.moments_at, "hamming_matrix": hamming.hamming_matrix}
 
 
 def reset_counters():
-    from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming
-
-    fast.fast_score.launches = 0
-    brief.brief_words.launches = 0
-    hamming.hamming_matrix.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counters():
-    from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming
-
-    return {"fast_score": fast.fast_score.launches,
-            "brief_words": brief.brief_words.launches,
-            "hamming_matrix": hamming.hamming_matrix.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_slice(device):
@@ -203,7 +348,8 @@ def phase_slice(device):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = read_counters()
-    want = {"fast_score": FRAMES, "brief_words": FRAMES, "hamming_matrix": 2 * FRAMES}
+    want = {"fast_score": FRAMES, "brief_words": FRAMES, "moments_at": FRAMES,
+            "hamming_matrix": 2 * FRAMES}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     ms = statistics.median(times)
@@ -339,6 +485,162 @@ def phase_sequence(device):
     log("sequence", f"{T} frames tracked; kernel vs plain poses max abs diff {worst:.3g}")
 
 
+@contextlib.contextmanager
+def dense_moments():
+    """Route the extractor's disc moments through the dense ``moment_maps``
+    canvas pass (the JAX package's default branch), read at the keypoints."""
+    from orb_slam_tracking_tpu_torch.ops import atlas, orientation
+    from orb_slam_tracking_tpu_torch.ops.pattern import EDGE_THRESHOLD
+
+    def dense_at(canvas, yc, xc, umax):
+        m10, m01 = orientation.moment_maps(canvas, umax)
+        y, x = yc.long() - EDGE_THRESHOLD, xc.long() - EDGE_THRESHOLD
+        return m10[y, x], m01[y, x]
+
+    saved = atlas.moments_at
+    atlas.moments_at = dense_at
+    try:
+        yield
+    finally:
+        atlas.moments_at = saved
+
+
+def phase_kp_moments(device):
+    """Extraction of the entry image with the disc moments at the keypoints
+    (``moments_at``, the port's path) and from the dense ``moment_maps``
+    pass: the outputs, and device ms per extraction each way (the
+    measurement behind the port taking the per-keypoint path)."""
+    from orb_slam_tracking_tpu_torch.config import OrbConfig, SystemConfig
+    from orb_slam_tracking_tpu_torch.convert import keypoints_to_numpy
+    from orb_slam_tracking_tpu_torch.entry import ENTRY_CAMERA, entry
+    from orb_slam_tracking_tpu_torch.ops.extractor import ExtractorConstants, orb_extract
+
+    image = entry(device)[1][0]
+    tracking = OrbConfig(n_features=1000)
+    ways = {"dense": dense_moments, "keypoints": contextlib.nullcontext}
+    for cfg in (tracking, SystemConfig(camera=ENTRY_CAMERA, orb=tracking).init_orb):
+        consts = ExtractorConstants(480, 640, cfg, device)
+        out = {}
+        for way, ctx in ways.items():
+            reset_counters()
+            with ctx():
+                out[way] = keypoints_to_numpy(orb_extract(image, cfg, consts))
+            if read_counters()["moments_at"] != int(way == "keypoints"):
+                raise AssertionError(f"{way}: {read_counters()} launches")
+        off, on_ = out["dense"], out["keypoints"]
+        valid = off["valid"] | on_["valid"]
+        same = {"keypoints": ((off["xy"] == on_["xy"]).all(1) & (off["valid"] == on_["valid"])
+                              & (off["octave"] == on_["octave"])),
+                "angles": off["angle_deg"] == on_["angle_deg"],
+                "descriptors": (off["desc"] == on_["desc"]).all(1)}
+        n = int(valid.sum())
+        counts = {k: int(v[valid].sum()) for k, v in same.items()}
+        # dense, keypoints, keypoints, dense: each way timed twice, in turns
+        dev = {way: [] for way in ways}
+        span = {way: [] for way in ways}
+        for way in ("dense", "keypoints", "keypoints", "dense"):
+            with ways[way]():
+                dev[way].append(device_ms(lambda: orb_extract(image, cfg, consts), runs=10))
+                span[way].append(time_ms(lambda: orb_extract(image, cfg, consts), runs=10))
+        log("kp_moments", f"{cfg.n_features} features: {n} keypoints; moments at the "
+            "keypoints vs dense maps "
+            + ", ".join(f"{v}/{n} {k}" for k, v in counts.items()) + " identical; "
+            f"device ms per extraction dense {dev['dense'][0]:.4f} / {dev['dense'][1]:.4f}, "
+            f"keypoints {dev['keypoints'][0]:.4f} / {dev['keypoints'][1]:.4f} (profiler, "
+            f"10 runs each); CUDA-event span dense {span['dense'][0]:.4f} / "
+            f"{span['dense'][1]:.4f}, keypoints {span['keypoints'][0]:.4f} / "
+            f"{span['keypoints'][1]:.4f} ms (median of 10)")
+        if min(counts.values()) < 0.99 * n:
+            raise AssertionError("the per-keypoint moments change the extraction")
+
+
+def _pose_errors(tv, R21, t21):
+    R = tv.R21.cpu().double().numpy()
+    t = tv.t21.cpu().double().numpy()
+    rerr = float(np.degrees(np.arccos(np.clip((np.trace(R.T @ R21) - 1) / 2, -1, 1))))
+    terr = float(np.degrees(np.arccos(np.clip(
+        t @ t21 / (np.linalg.norm(t) * np.linalg.norm(t21)), -1, 1))))
+    return rerr, terr
+
+
+def phase_init(device):
+    """Two-view initialization at its operating point: launches per pair,
+    accuracy, ms per pair at 200 and 2000 hypotheses, the host syncs, and
+    the pair through the plain versions."""
+    from orb_slam_tracking_tpu_torch.config import InitConfig
+    from orb_slam_tracking_tpu_torch.entry import init_entry
+
+    result = {}
+    for iters in (200, 2000):
+        forward, args, R21, t21 = init_entry(device, InitConfig(ransac_iterations=iters))
+        for _ in range(3):  # warm-up: lazy cuSOLVER and library initialisation
+            forward(*args)
+        torch.cuda.synchronize()
+        reset_counters()
+        times = []
+        for _ in range(PAIRS):
+            t0 = time.perf_counter()
+            out = forward(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counters()
+        want = {"fast_score": 2 * PAIRS, "brief_words": 2 * PAIRS,
+                "moments_at": 2 * PAIRS, "hamming_matrix": PAIRS}
+        if counts != want:
+            raise AssertionError(f"launch counts {counts} over {PAIRS} pairs, expected {want}")
+        tv = out.two_view
+        rerr, terr = _pose_errors(tv, R21, t21)
+        log("init", f"{iters} hypotheses: {PAIRS} pairs, median {statistics.median(times):.3f} "
+            f"ms/pair, min {min(times):.3f} (host clock to synchronize); launches {counts}; "
+            f"{int(out.kps1.valid.sum())}/{int(out.kps2.valid.sum())} keypoints, "
+            f"{int(out.matches.n_matches)} matches; success {bool(tv.success)}, "
+            f"used_homography {bool(tv.used_homography)}, n_inliers {int(tv.n_inliers)}, "
+            f"n_good {int(tv.n_good)}, parallax {float(tv.parallax_deg):.4f} deg; "
+            f"rotation error {rerr:.4f} deg, translation direction error {terr:.4f} deg")
+        if not bool(tv.success):
+            raise AssertionError("the init pair did not initialize")
+        if rerr > INIT_POSE_BOUNDS_DEG[0] or terr > INIT_POSE_BOUNDS_DEG[1]:
+            raise AssertionError(f"pose off ground truth by {rerr:.4f} / {terr:.4f} deg, "
+                                 f"bounds {INIT_POSE_BOUNDS_DEG}")
+        for name in ("R21", "t21", "points3d"):
+            if not bool(torch.isfinite(getattr(tv, name)).all()):
+                raise AssertionError(f"{name} is not finite")
+        if iters == 200:
+            result = counts
+            # the host syncs of a pair (the tracking step's are forbidden; this
+            # path is not yet required to be free of them)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    forward(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = {}
+            for w in caught:
+                if "synchroniz" in str(w.message):
+                    where = f"{Path(w.filename).name}:{w.lineno}"
+                    syncs[where] = syncs.get(where, 0) + 1
+            log("init", f"host syncs in a pair: {sum(syncs.values())} at "
+                + (", ".join(f"{k} x{v}" for k, v in sorted(syncs.items())) or "none"))
+
+            before = read_counters()
+            with plain_kernels():
+                plain = forward(*args).two_view
+            if read_counters() != before:
+                raise AssertionError("the plain run launched kernels")
+            for f in ("success", "used_homography", "n_inliers"):
+                if not torch.equal(getattr(plain, f), getattr(tv, f)):
+                    raise AssertionError(f"plain {f} {getattr(plain, f)} vs kernels {getattr(tv, f)}")
+            diff = max(float((plain.R21 - tv.R21).abs().max()),
+                       float((plain.t21 - tv.t21).abs().max()))
+            if diff > 1e-5:
+                raise AssertionError(f"kernel and plain R/t differ by {diff}")
+            log("init", f"plain versions on the card: no kernel launched; success, model "
+                f"and n_inliers identical; R/t max abs diff {diff:.3g}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -349,14 +651,19 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     results = phase_kernels(device)
-    counts, _ = phase_slice(device)
+    paths = {"tracking": phase_slice(device)[0]}
     phase_sequence(device)
+    phase_kp_moments(device)
+    paths["init"] = phase_init(device)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "orb_slam_tracking_tpu"))
     if foreign:
         raise AssertionError(f"jax or the JAX package was imported: {foreign[:5]}")
     for k in results:
-        k["launches"] = counts[k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was launched on no path")
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Configuration of the tracking slice, as frozen dataclasses.
 
 These are the port's own copies of the JAX package's ``CameraConfig``,
-``OrbConfig``, ``MatcherConfig`` and ``TrackerConfig``, cut to the fields
-the tracking step reads, with the same names, defaults, checks and derived
+``OrbConfig``, ``MatcherConfig``, ``InitConfig``, ``TrackerConfig`` and
+``SystemConfig``, cut to the fields the tracking step and the two-view
+initialization read, with the same names, defaults, checks and derived
 shapes. The port imports nothing of the JAX package, so it cannot share
 them; ``tests/test_torch_track.py`` holds the two sets equal. The YAML
 loader and the other fields come with the slices that use them.
@@ -13,7 +14,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-__all__ = ["CameraConfig", "MatcherConfig", "OrbConfig", "TrackerConfig"]
+__all__ = ["CameraConfig", "InitConfig", "MatcherConfig", "OrbConfig",
+           "SystemConfig", "TrackerConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,9 +102,33 @@ class OrbConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MatcherConfig:
-    """Descriptor matching: the largest Hamming distance of a match."""
+    """Descriptor matching: the ratio test, rotation histogram and Hamming
+    thresholds of initialization (``th_low``) and tracking (``th_high``),
+    the initialization search window in px and the fixed capacity of the
+    compacted match list."""
 
+    nn_ratio: float = 0.9
+    check_orientation: bool = True
+    th_low: int = 50
     th_high: int = 100
+    histo_length: int = 30
+    window_size: int = 100
+    max_matches: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class InitConfig:
+    """Two-view initialization: RANSAC hypotheses per model (200 as in
+    tracking, the demo uses 2000), the acceptance gates, the H/F selection
+    threshold on RH = SH / (SH + SF). The chi-square thresholds are the
+    scores' constants, as in the JAX package."""
+
+    sigma: float = 1.0
+    ransac_iterations: int = 200
+    min_matches: int = 100
+    min_triangulated: int = 50
+    min_parallax_deg: float = 1.0
+    rh_threshold: float = 0.40
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,3 +141,19 @@ class TrackerConfig:
     local_map_radius: float = 3.0
     pose_opt_rounds: int = 2
     pose_opt_iters: int = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemConfig:
+    camera: CameraConfig
+    orb: OrbConfig = OrbConfig()
+    matcher: MatcherConfig = MatcherConfig()
+    init: InitConfig = InitConfig()
+    tracker: TrackerConfig = TrackerConfig()
+
+    @property
+    def init_orb(self) -> OrbConfig:
+        """Init-time extractor with twice the features (the reference's
+        ``tracking.cpp:17-23``), capacity re-derived."""
+        return dataclasses.replace(
+            self.orb, n_features=2 * self.orb.n_features, max_keypoints=0)

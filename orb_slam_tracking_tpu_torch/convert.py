@@ -5,7 +5,8 @@ There are no model weights; the state a tracking step consumes is the map
 and the intrinsics. The pose and ``K`` are plain float32 tensors; these
 helpers turn the JAX package's numpy map into the port's tensors (uint32
 descriptors become int32 with the same bits) and the port's keypoints
-back into numpy, so both packages are fed and read identically.
+back and forth between numpy and tensors, so both packages are fed and
+read identically.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from .types import Keypoints
 
 __all__ = ["MapTensors", "desc_to_int32", "desc_to_uint32", "map_from_numpy",
-           "keypoints_to_numpy"]
+           "keypoints_from_numpy", "keypoints_to_numpy"]
 
 
 class MapTensors(NamedTuple):
@@ -74,3 +75,12 @@ def keypoints_to_numpy(kps: Keypoints) -> Dict[str, np.ndarray]:
     out = {f: getattr(kps, f).detach().cpu().numpy() for f in kps._fields}
     out["desc"] = desc_to_uint32(out["desc"])
     return out
+
+
+def keypoints_from_numpy(kps, *, device: torch.device | str) -> Keypoints:
+    """The JAX package's keypoints (any mapping or NamedTuple of arrays with
+    ``Keypoints``' fields, uint32 descriptors) -> the port's tensors."""
+    get = kps.get if isinstance(kps, dict) else lambda f: getattr(kps, f)
+    out = {f: np.asarray(get(f)) for f in Keypoints._fields}
+    out["desc"] = desc_to_int32(out["desc"])
+    return Keypoints(**{f: torch.tensor(a, device=device) for f, a in out.items()})

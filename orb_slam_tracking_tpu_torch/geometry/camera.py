@@ -9,9 +9,17 @@ import torch
 
 from ..config import CameraConfig
 
-__all__ = ["undistort_normalized", "undistort_pixels", "project"]
+__all__ = ["intrinsics_matrix", "undistort_normalized", "undistort_pixels",
+           "project"]
 
 _UNDISTORT_ITERS = 10
+
+
+def intrinsics_matrix(cam: CameraConfig,
+                      device: torch.device | str) -> torch.Tensor:
+    """K [3, 3] float32 of the pinhole part."""
+    return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy],
+                         [0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
 
 
 def undistort_normalized(cam: CameraConfig, xy_dist: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "osltt_fast_score": (_P, _P, _I, _I, _I, _P),
     "osltt_brief_words": (_P, _I, _I, _P, _P, _P, _I, _P),
     "osltt_hamming_matrix": (_P, _P, _P, _I, _I, _P),
+    "osltt_moments_at": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _P),
 }
 
 

@@ -2,12 +2,16 @@
 (counterpart of ``ops/atlas.py``).
 
 Each level carries its own 19-px reflect apron and the blocks are stacked
-vertically, so the FAST score, the disc moments and the blur each run once
-over the canvas, and the descriptor sampler once over all keypoints.
+vertically, so the FAST score and the blur each run once over the canvas,
+and the disc moments and the descriptor sampler once over all keypoints.
 Per-level work (eligibility border, the dual-threshold cell fallback, NMS,
 budgeted selection) runs on static slices of the canvas score map.
-The JAX package's per-keypoint moments kernel branch (off by default) is
-not ported; the dense ``moment_maps`` is the path.
+
+The disc moments are taken at the selected keypoints only
+(``moments_at``), the JAX package's ``ORB_TPU_KP_MOMENTS=1`` branch, not
+by its default dense ``moment_maps`` canvas pass: the two give identical
+angles, and the keypoint path takes less device time on the H100
+(PERF.md).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from ..config import OrbConfig
 from ..types import Keypoints
 from .brief import descriptors_at
 from .fast import cell_reduce_max, fast_score
-from .orientation import angles_at, moment_maps
+from .orientation import angles_from_moments, moments_at
 from .pattern import EDGE_THRESHOLD, PATCH_SIZE
 from .pyramid import gaussian_blur, reflect_pad, resize
 from .select import select_level
@@ -93,14 +97,12 @@ def _detect_slice(score: torch.Tensor, ini_th: int, min_th: int,
 
 def extract_from_canvas(canvas: torch.Tensor, lay: AtlasLayout,
                         cfg: OrbConfig, gauss: torch.Tensor,
-                        pattern_xy: torch.Tensor, umax: Sequence[int]
-                        ) -> Keypoints:
+                        pattern_xy: torch.Tensor, umax: Sequence[int]) -> Keypoints:
     """Detect, select, orient and describe on a built canvas."""
     budgets = cfg.features_per_level()
     scales = cfg.level_scales()
 
     score_c = fast_score(canvas, _PAD)
-    m10_c, m01_c = moment_maps(canvas, umax)
     blurred_c = gaussian_blur(canvas, gauss)
 
     xy_atlas, xs, resps, octs, sizes, valids = [], [], [], [], [], []
@@ -118,7 +120,10 @@ def extract_from_canvas(canvas: torch.Tensor, lay: AtlasLayout,
         valids.append(valid)
 
     xy_c = torch.cat(xy_atlas)
-    angle = angles_at(m10_c, m01_c, xy_c)
+    # absolute canvas pixel of each keypoint (atlas.py:191-193)
+    yc = xy_c[:, 1].to(torch.int32) + _PAD
+    xc = xy_c[:, 0].to(torch.int32) + _PAD
+    angle = angles_from_moments(*moments_at(canvas, yc, xc, umax))
     desc = descriptors_at(blurred_c, xy_c, angle, pattern_xy)
 
     n = xy_c.shape[0]

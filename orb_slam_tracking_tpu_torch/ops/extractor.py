@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..config import OrbConfig
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..types import Keypoints
 from .atlas import atlas_layout, orb_extract_atlas
 from .pattern import brief_pattern, umax_table
@@ -36,8 +37,9 @@ class ExtractorConstants(nn.Module):
     tuple: reading it from the device would sync every frame."""
 
     def __init__(self, height: int, width: int, cfg: OrbConfig,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         shapes = atlas_layout(height, width, cfg).level_shapes
         self.n_resize = len(shapes) - 1
         for i, ((h0, w0), (h1, w1)) in enumerate(zip(shapes[:-1], shapes[1:])):

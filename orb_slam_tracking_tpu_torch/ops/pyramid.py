@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import DEFAULT_DEVICE, resolve_device
+
 __all__ = ["reflect_pad", "gauss_taps", "gaussian_blur", "resize_matrix",
            "resize"]
 
@@ -26,11 +28,12 @@ def reflect_pad(img: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def gauss_taps(ksize: int = 7, sigma: float = 2.0,
-               device: torch.device | str = "cpu") -> torch.Tensor:
+               device: torch.device | str = DEFAULT_DEVICE) -> torch.Tensor:
     """[ksize] float32 normalised Gaussian taps, computed in f32 as the JAX
     package computes them (``pyramid.py:35-39``)."""
     r = ksize // 2
-    x = torch.arange(-r, r + 1, dtype=torch.float32, device=device)
+    x = torch.arange(-r, r + 1, dtype=torch.float32,
+                     device=resolve_device(device))
     k = torch.exp(-(x * x) / (2.0 * sigma * sigma))
     return k / k.sum()
 

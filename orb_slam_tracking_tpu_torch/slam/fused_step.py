@@ -10,7 +10,7 @@ Per frame:
 (resize matrices, Gaussian taps, BRIEF pattern), built once. The step has
 fixed shapes and validity masks and never syncs the host, so it can later
 be captured as one CUDA graph. On the card it launches one FAST kernel,
-one BRIEF kernel and two Hamming kernels.
+one moments kernel, one BRIEF kernel and two Hamming kernels.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..config import CameraConfig, MatcherConfig, OrbConfig, TrackerConfig
+from ..device import DEFAULT_DEVICE, full_f32, resolve_device
 from ..geometry import camera
 from ..ops.extractor import ExtractorConstants, orb_extract
 from ..ops.proj_matcher import search_by_projection
@@ -57,19 +58,15 @@ class TrackingStep(nn.Module):
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: OrbConfig,
                  matcher_cfg: MatcherConfig, tracker_cfg: TrackerConfig,
                  radius_scale: float = 1.0,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         self.cam_cfg = cam_cfg
         self.orb_cfg = orb_cfg
         self.matcher_cfg = matcher_cfg
         self.tracker_cfg = tracker_cfg
         self.radius = tracker_cfg.projection_radius * radius_scale
-        if torch.device(device).type == "cuda":
-            # The pose LM and the projections are f32 in the reference
-            # (ROADMAP C5): TF32 would keep ~3 decimal digits in the resize
-            # and normal-equation products, so both switches are set off.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        full_f32(device)
         self.consts = ExtractorConstants(cam_cfg.height, cam_cfg.width,
                                          orb_cfg, device)
 

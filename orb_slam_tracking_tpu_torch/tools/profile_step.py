@@ -1,20 +1,25 @@
-"""Where the tracking step's time goes on the GPU, at the ``entry()`` point.
+"""Where a path's time goes on the GPU, at its operating point.
 
-    python -m orb_slam_tracking_tpu_torch.tools.profile_step [--frames 10]
-        [--out FILE.json]
+    python -m orb_slam_tracking_tpu_torch.tools.profile_step
+        [--path tracking|init] [--frames 10] [--out FILE.json]
 
-Runs ``TrackingStep`` at 640x480, 1000 keypoints against an 8192-point
-map, after a warm-up, and reports:
+``tracking`` (the default) runs ``TrackingStep`` at the ``entry()`` point
+(640x480, 1000 keypoints against an 8192-point map); ``init`` runs
+``TwoViewInitializer`` at the ``init_entry()`` point (a rendered 640x480
+pair, 2000 keypoints, 200 hypotheses). After a warm-up it
+reports, per frame (or pair):
 
-* the step: host-clock ms per frame (to ``synchronize``, median and min)
-  and the CUDA-event span of a frame (median);
-* each stage (``orb_extract``, ``search_by_projection`` x2,
-  ``optimize_pose`` x2): host-clock ms per call with a ``synchronize``
+* the step: host-clock ms (to ``synchronize``, median and min) and the
+  CUDA-event span (median);
+* each stage (tracking: ``orb_extract``, ``search_by_projection`` x2,
+  ``optimize_pose`` x2; init: ``orb_extract`` x2,
+  ``search_for_initialization``, ``compact_matches``,
+  ``initialize_two_view``): host-clock ms per call with a ``synchronize``
   before and after it, so each stage is timed alone;
-* from one ``torch.profiler`` trace of ``--frames`` frames: device time per
-  frame (the sum of kernel, copy and fill durations), the same split by
-  stage, ``cudaLaunchKernel`` calls per frame, and the device's busy share
-  of the host-clock frame.
+* from one ``torch.profiler`` trace of ``--frames`` runs: device time (the
+  sum of kernel, copy and fill durations), the same split by stage,
+  ``cudaLaunchKernel`` calls, and the device's busy share of the
+  host-clock time.
 
 Needs a CUDA device; prints one line per figure and, with ``--out``,
 writes them as JSON.
@@ -33,18 +38,23 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from ..entry import entry
-from ..slam import fused_step
+from ..entry import entry, init_entry
+from ..slam import fused_step, two_view_init
 
-_STAGES = ("orb_extract", "search_by_projection", "optimize_pose")
+# the module whose forward calls each stage, and the stages' names in it
+_PATHS = {
+    "tracking": (fused_step, ("orb_extract", "search_by_projection", "optimize_pose")),
+    "init": (two_view_init, ("orb_extract", "search_for_initialization",
+                             "compact_matches", "initialize_two_view")),
+}
 
 
 @contextlib.contextmanager
-def _timed_stages(host_ms):
-    """Time each stage of ``TrackingStep.forward`` alone on the host clock
+def _timed_stages(host_ms, module, stages):
+    """Time each stage of the path's forward alone on the host clock
     (``synchronize`` before and after) inside a ``record_function`` range
     named after it; restore the stage functions on exit."""
-    saved = {name: getattr(fused_step, name) for name in _STAGES}
+    saved = {name: getattr(module, name) for name in stages}
 
     def wrap(name, fn):
         def timed(*args, **kwargs):
@@ -58,12 +68,12 @@ def _timed_stages(host_ms):
         return timed
 
     for name, fn in saved.items():
-        setattr(fused_step, name, wrap(name, fn))
+        setattr(module, name, wrap(name, fn))
     try:
         yield
     finally:
         for name, fn in saved.items():
-            setattr(fused_step, name, fn)
+            setattr(module, name, fn)
 
 
 def _device_split(prof):
@@ -95,13 +105,15 @@ def _device_split(prof):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=sorted(_PATHS), default="tracking")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     device = torch.device("cuda", 0)
-    forward, inputs = entry(device)
+    forward, inputs = (entry if args.path == "tracking" else init_entry)(device)[:2]
+    module, stages = _PATHS[args.path]
     for _ in range(3):  # lazy CUDA, cuBLAS and kernel-library initialisation
         forward(*inputs)
     torch.cuda.synchronize()
@@ -119,7 +131,7 @@ def main(argv=None) -> dict:
         span.append(start.elapsed_time(end))
 
     stage_ms = defaultdict(list)
-    with _timed_stages(stage_ms):
+    with _timed_stages(stage_ms, module, stages):
         for _ in range(args.frames):
             forward(*inputs)
 
@@ -128,7 +140,7 @@ def main(argv=None) -> dict:
             forward(*inputs)
         torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_stages:
-        with _timed_stages(defaultdict(list)):
+        with _timed_stages(defaultdict(list), module, stages):
             for _ in range(args.frames):
                 forward(*inputs)
     device_us, _, launches = _device_split(prof)
@@ -139,6 +151,7 @@ def main(argv=None) -> dict:
     n = args.frames
     step_ms = statistics.median(host)
     res = {
+        "path": args.path,
         "frames": n,
         "step_ms_median": step_ms, "step_ms_min": min(host),
         "step_event_span_ms_median": statistics.median(span),

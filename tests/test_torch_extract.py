@@ -25,6 +25,7 @@ from orb_slam_tracking_tpu_torch.ops import atlas, orientation, pyramid, select
 from orb_slam_tracking_tpu_torch.ops.extractor import ExtractorConstants, orb_extract
 from orb_slam_tracking_tpu_torch.ops.fast import cell_reduce_max
 from orb_slam_tracking_tpu_torch.ops.pattern import umax_table
+from orb_slam_tracking_tpu_torch.types import Keypoints
 from orb_slam_tracking_tpu_torch.utils import synthetic
 
 _CFG = OrbConfig(n_features=300, n_levels=4)
@@ -76,7 +77,7 @@ def test_reflect_pad_exact(rng, pad):
 
 
 def test_gauss_taps_exact():
-    np.testing.assert_array_equal(pyramid.gauss_taps().numpy(),
+    np.testing.assert_array_equal(pyramid.gauss_taps(device="cpu").numpy(),
                                   np.asarray(jx_pyramid._gauss_kernel_1d(7, 2.0)))
 
 
@@ -85,7 +86,7 @@ def test_gaussian_blur_exact(rng, integer):
     img = rng.random((73, 101)) * 255
     img = (np.floor(img) if integer else img).astype(np.float32)
     ref = np.asarray(jx_pyramid.gaussian_blur(jnp.asarray(img)))
-    got = pyramid.gaussian_blur(torch.from_numpy(img), pyramid.gauss_taps())
+    got = pyramid.gaussian_blur(torch.from_numpy(img), pyramid.gauss_taps(device="cpu"))
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
@@ -120,6 +121,20 @@ def test_moment_maps_exact(rng, integer):
     g10, g01 = orientation.moment_maps(torch.from_numpy(img), umax_table())
     np.testing.assert_array_equal(g10.numpy(), np.asarray(r10))
     np.testing.assert_array_equal(g01.numpy(), np.asarray(r01))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_moments_at_reference_equals_dense_maps(rng, integer):
+    """The per-keypoint plain version performs the dense pass's operations at
+    each pixel, in the same order: equal bit for bit."""
+    img = rng.random((120, 170)) * 255
+    img = torch.from_numpy((np.floor(img) if integer else img).astype(np.float32))
+    m10, m01 = orientation.moment_maps(img, umax_table())
+    ys = torch.from_numpy(rng.integers(0, m10.shape[0], 300).astype(np.int32))
+    xs = torch.from_numpy(rng.integers(0, m10.shape[1], 300).astype(np.int32))
+    g10, g01 = orientation.moments_at_reference(img, ys + 19, xs + 19, umax_table())
+    np.testing.assert_array_equal(g10.numpy(), m10[ys.long(), xs.long()].numpy())
+    np.testing.assert_array_equal(g01.numpy(), m01[ys.long(), xs.long()].numpy())
 
 
 def test_angles_at(rng):
@@ -200,7 +215,7 @@ def _level_sets(xy, octave, valid):
 @pytest.mark.parametrize("kind", ["rendered", "random"])
 def test_extraction_from_jax_canvas(kind):
     ref, canvas = _jax_extract(kind)
-    consts = ExtractorConstants(_H, _W, _CFG)
+    consts = ExtractorConstants(_H, _W, _CFG, device="cpu")
     lay = atlas.atlas_layout(_H, _W, _CFG)
     kps = atlas.extract_from_canvas(torch.from_numpy(canvas), lay, _CFG, consts.gauss,
                                     consts.pattern_xy, consts.umax)
@@ -212,6 +227,39 @@ def test_extraction_from_jax_canvas(kind):
     # eager moment_maps exactly, test_moment_maps_exact): angles move by a
     # few 1e-3 degrees, far from flipping any rounded BRIEF offset here
     np.testing.assert_allclose(kps.angle_deg.numpy(), ref["angle_deg"], atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["rendered", "random"])
+def test_kp_moments_extraction_equals_dense(monkeypatch, kind):
+    """The extractor takes the moments at the keypoints only (the JAX
+    package's ORB_TPU_KP_MOMENTS=1 branch); its output is identical to
+    the same extraction with the moments read off the dense maps (the JAX
+    package's default branch)."""
+    _, canvas = _jax_extract(kind)
+    canvas = torch.from_numpy(canvas)
+    lay = atlas.atlas_layout(_H, _W, _CFG)
+    consts = ExtractorConstants(_H, _W, _CFG, device="cpu")
+    img = torch.from_numpy(_image(kind))
+    calls = []
+
+    def dense_at(c, yc, xc, umax):
+        calls.append(yc.shape[0])
+        m10, m01 = orientation.moment_maps(c, umax)
+        y, x = yc.long() - 19, xc.long() - 19
+        return m10[y, x], m01[y, x]
+
+    def run():
+        return (atlas.extract_from_canvas(canvas, lay, _CFG, consts.gauss,
+                                          consts.pattern_xy, consts.umax),
+                orb_extract(img, _CFG, consts))
+
+    got = run()
+    monkeypatch.setattr(atlas, "moments_at", dense_at)
+    ref = run()
+    assert calls == [sum(_CFG.features_per_level())] * 2
+    for g, r in zip(got, ref, strict=True):
+        for f in Keypoints._fields:
+            assert torch.equal(getattr(g, f), getattr(r, f)), f
 
 
 @pytest.mark.parametrize("kind", ["rendered", "random"])

@@ -20,14 +20,16 @@ from orb_slam_tracking_tpu.ops import brief as jx_brief
 from orb_slam_tracking_tpu.ops import fast as jx_fast
 from orb_slam_tracking_tpu.ops import hamming as jx_hamming
 from orb_slam_tracking_tpu.ops import pattern as jx_pattern
+from orb_slam_tracking_tpu.ops import orientation as jx_orientation
 from orb_slam_tracking_tpu.ops.pallas_kernels import (
     brief_sample_pallas,
     fast_score_pallas,
     hamming_matrix_pallas,
+    moments_at_pallas,
 )
 from orb_slam_tracking_tpu.ops.pyramid import reflect_pad as jx_reflect_pad
 from orb_slam_tracking_tpu_torch import kernels
-from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming, pattern
+from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming, orientation, pattern
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -130,6 +132,41 @@ def test_hamming_matrix_ragged_shape(rng):
     assert got.min() >= 0 and got.max() <= 256
 
 
+@pytest.mark.parametrize("shape,n", [((200, 384), 96), ((120, 256), 37)])
+def test_moments_at_matches_jax_and_pallas(rng, shape, n):
+    """The shapes of the JAX package's own moments tests, N not a multiple
+    of the Pallas kernel's group of 16 included. The Pallas kernel sums the
+    masked disc in another order: held to its own tolerance, 1e-5 x
+    (max |m10| + 1). The dense JAX maps (the eager adds the port repeats)
+    are matched exactly."""
+    canvas = (rng.random(shape) * 255).astype(np.float32)
+    pad = pattern.EDGE_THRESHOLD
+    r10, r01 = (np.asarray(m) for m in jx_orientation.moment_maps(jnp.asarray(canvas), pad))
+    ys = rng.integers(0, r10.shape[0], n).astype(np.int32)
+    xs = rng.integers(0, r10.shape[1], n).astype(np.int32)
+    p10, p01 = (np.asarray(m) for m in moments_at_pallas(
+        jnp.asarray(canvas), jnp.asarray(ys + pad), jnp.asarray(xs + pad), interpret=True))
+    g10, g01 = orientation.moments_at(torch.from_numpy(canvas), torch.from_numpy(ys + pad),
+                                      torch.from_numpy(xs + pad), pattern.umax_table())
+    assert g10.shape == g01.shape == (n,) and g10.dtype == torch.float32
+    scale = np.abs(r10[ys, xs]).max() + 1.0
+    np.testing.assert_allclose(g10.numpy(), p10, atol=1e-5 * scale, rtol=0)
+    np.testing.assert_allclose(g01.numpy(), p01, atol=1e-5 * scale, rtol=0)
+    np.testing.assert_array_equal(g10.numpy(), r10[ys, xs])
+    np.testing.assert_array_equal(g01.numpy(), r01[ys, xs])
+
+
+def test_moments_at_clamps_reads(rng):
+    canvas = torch.from_numpy((rng.random((40, 50)) * 255).astype(np.float32))
+    yc = torch.tensor([0, 39, 5, 20], dtype=torch.int32)
+    xc = torch.tensor([0, 49, 45, 2], dtype=torch.int32)
+    got = orientation.moments_at_reference(canvas, yc, xc, pattern.umax_table())
+    big = torch.nn.functional.pad(canvas[None, None], (15, 15, 15, 15),
+                                  mode="replicate")[0, 0]
+    ref = orientation.moments_at_reference(big, yc + 15, xc + 15, pattern.umax_table())
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
 def test_pattern_and_umax_match_jax():
     np.testing.assert_array_equal(pattern.brief_pattern(), jx_pattern.brief_pattern())
     np.testing.assert_array_equal(pattern.umax_table(), jx_pattern.umax_table())
@@ -144,12 +181,15 @@ def test_launch_counters_stay_zero_on_cpu(rng):
     brief.brief_words(torch.from_numpy(img), torch.from_numpy(sy), torch.from_numpy(sx))
     d = torch.from_numpy(rng.integers(-2**31, 2**31, (5, 8)).astype(np.int32))
     hamming.hamming_matrix(d, d)
+    yx = torch.full((3,), 30, dtype=torch.int32)
+    orientation.moments_at(torch.from_numpy(img), yx, yx, pattern.umax_table())
     assert fast.fast_score.launches == 0
     assert brief.brief_words.launches == 0
     assert hamming.hamming_matrix.launches == 0
+    assert orientation.moments_at.launches == 0
 
 
-@pytest.mark.parametrize("call", ["fast", "brief", "hamming"])
+@pytest.mark.parametrize("call", ["fast", "brief", "hamming", "moments"])
 def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
     """Only a CPU tensor may take the plain version; any other device goes
     to the kernel's checks, which refuse it."""
@@ -161,6 +201,9 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
             fast.fast_score(img, 19)
         elif call == "brief":
             brief.brief_words(img, coords, coords)
+        elif call == "moments":
+            yx = torch.empty((3,), dtype=torch.int32, device="meta")
+            orientation.moments_at(img, yx, yx, pattern.umax_table())
         else:
             hamming.hamming_matrix(desc, desc)
 
@@ -170,7 +213,10 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
     assert d.parent == kernels.BUILD_ROOT
     assert kernels.BUILD_ROOT.parent.name == "build"
     assert {p.name for p in kernels._sources()} >= {
-        "fast_score.cu", "brief_words.cu", "hamming_matrix.cu"}
+        "fast_score.cu", "brief_words.cu", "hamming_matrix.cu", "moments_at.cu"}
+    assert set(kernels._SIGNATURES) == {
+        "osltt_fast_score", "osltt_brief_words", "osltt_hamming_matrix",
+        "osltt_moments_at"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -179,12 +225,17 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port loads without jax and without the JAX
-    package."""
+    package, the two-view initialization slice's among them."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import orb_slam_tracking_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "need = {p.__name__ + '.' + m for m in (\n"
+        "    'entry', 'ops.matcher', 'ops.orientation', 'slam.two_view_init',\n"
+        "    'geometry.sampling', 'geometry.triangulate', 'geometry.homography',\n"
+        "    'geometry.fundamental', 'geometry.twoview')}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'orb_slam_tracking_tpu'))\n"
         "assert not bad, bad\n"

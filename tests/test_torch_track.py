@@ -57,17 +57,40 @@ def _jx(cfg):
     return getattr(jx_config, type(cfg).__name__)(**dataclasses.asdict(cfg))
 
 
-_CONFIGS = ("CameraConfig", "OrbConfig", "MatcherConfig", "TrackerConfig")
+_CONFIGS = ("CameraConfig", "OrbConfig", "MatcherConfig", "TrackerConfig",
+            "InitConfig", "SystemConfig")
+
+
+def _same_default(got, ref):
+    """A nested config default is the port's own class: it matches when the
+    class names match and each of its fields has the JAX default's value."""
+    if dataclasses.is_dataclass(got):
+        return (type(got).__name__ == type(ref).__name__
+                and dataclasses.asdict(got).items() <= dataclasses.asdict(ref).items())
+    return got == ref
 
 
 @pytest.mark.parametrize("name", _CONFIGS)
 def test_config_fields_match_jax(name):
     """Each field of the port's dataclass exists in the JAX package's, with
-    the same type and default; the tracking step reads all of them."""
+    the same type and default; the tracking step and the two-view
+    initialization read all of them."""
     ref = {f.name: f for f in dataclasses.fields(getattr(jx_config, name))}
     for f in dataclasses.fields(getattr(config, name)):
         assert f.name in ref, f.name
-        assert (f.type, f.default) == (ref[f.name].type, ref[f.name].default), f.name
+        assert f.type == ref[f.name].type, f.name
+        assert _same_default(f.default, ref[f.name].default), f.name
+
+
+@pytest.mark.parametrize("n_features", [1000, 300])
+def test_system_config_init_orb_matches_jax(n_features):
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0)
+    got = config.SystemConfig(camera=cam, orb=OrbConfig(n_features=n_features)).init_orb
+    ref = jx_config.SystemConfig(camera=_jx(cam),
+                                 orb=jx_config.OrbConfig(n_features=n_features)).init_orb
+    assert dataclasses.asdict(got).items() <= dataclasses.asdict(ref).items()
+    assert got.features_per_level() == ref.features_per_level()
+    assert (got.n_features, got.max_keypoints) == (2 * n_features, ref.max_keypoints)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -328,7 +351,7 @@ def _track_jax(frames, pts, desc, valid, R, t, K):
 
 
 def _track_port(frames, pts, desc, valid, R, t, K):
-    step = TrackingStep(_CAM, _OCFG, MatcherConfig(), TrackerConfig())
+    step = TrackingStep(_CAM, _OCFG, MatcherConfig(), TrackerConfig(), device="cpu")
     m = map_from_numpy(pts, desc, valid, device="cpu")
     R, t, K = torch.tensor(R), torch.tensor(t), torch.tensor(K)
     vel, out = None, []
@@ -377,7 +400,7 @@ def test_tracking_step_outputs():
 
 
 def test_tracking_step_buffers():
-    step = TrackingStep(_CAM, _OCFG, MatcherConfig(), TrackerConfig())
+    step = TrackingStep(_CAM, _OCFG, MatcherConfig(), TrackerConfig(), device="cpu")
     names = dict(step.named_buffers())
     assert {"consts.gauss", "consts.pattern_xy", "consts.resize_h0",
             "consts.resize_w0"} <= set(names)
@@ -387,3 +410,15 @@ def test_tracking_step_buffers():
     assert step.consts.pattern_xy.shape == (2, 512)
     # the forward reads the registered buffers themselves
     assert step.consts.resize_mats[0][0] is names["consts.resize_h0"]
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a CUDA device, an entry point that is not given
+    device="cpu" raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrackingStep(_CAM, _OCFG, MatcherConfig(), TrackerConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+    assert TrackingStep(_CAM, _OCFG, MatcherConfig(), TrackerConfig(),
+                        device="cpu").consts.gauss.device.type == "cpu"
