@@ -11,11 +11,15 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the main paths (exact equality), with the median of 25 timed runs,
    the least time the card could take for the same work (bytes over
-   3.35 TB/s or operations over 67 T/s, the larger) and, where one
-   PyTorch call computes the same function, that call's time;
+   3.35 TB/s, or operations over 67 T/s on the CUDA cores and over
+   1,979 T/s on the tensor cores, the larger) and, where one PyTorch call
+   computes the same function, that call's time; the fused Hamming row
+   minima at the gates of the tracking step's first match and of the init
+   pair's match, and on a tie-heavy case;
 4. the fused tracking step at the ``entry()`` operating point (640x480,
    1000 keypoints, an 8192-point map): launch counts per frame, output
-   shapes and finiteness, ms per frame;
+   shapes and finiteness, ms per frame, and the device memory each match
+   allocates (no [P, N] matrix);
 5. tracking a rendered sequence: accuracy against ground truth, and the
    same frames through the plain versions on the card;
 6. extraction of the entry image with the disc moments taken at the
@@ -52,11 +56,16 @@ ROOT = Path(__file__).resolve().parent
 FRAMES = 10  # timed entry-point frames in phase 4
 RUNS = 25    # timed runs per kernel in phase 3
 PAIRS = 10   # timed init pairs in phase 7
-# H100 SXM peaks at 700 W (published data-sheet figures): device memory, and
-# 32-bit arithmetic outside the tensor cores (the kernels' ops are f32
-# adds, subs, muls, min/max and int32 xor/popcount)
+# H100 SXM peaks at 700 W: device memory and 32-bit arithmetic outside the
+# tensor cores (the kernels' f32 adds, subs, muls, min/max and int32 ops),
+# published data-sheet figures; and the Hamming kernel's binary tensor-core
+# rate (b1 mma.m16n8k256 and + popcount, one op per bit and per and or
+# add). No binary rate is published: tools/probe_rates.py measures the b1
+# mma at the issue rate of the s8 mma.m16n8k32 (8x fewer bits), so it is
+# held to 8x the published int8 rate of 1,979 T/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+B1_MMA_OPS_PER_S = 8 * 1979e12
 INIT_POSE_BOUNDS_DEG = (0.5, 5.0)  # rotation error, translation direction error
 
 
@@ -81,10 +90,12 @@ def time_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    """(least ms the card could take, "bytes" or "operations")."""
+def bound_ms(n_bytes: float, n_ops: float, n_tc_ops: float = 0.0):
+    """(least ms the card could take, "bytes" or "operations"): the larger of
+    the bytes over the memory rate and each kind of operation over its
+    peak (CUDA-core and b1 tensor-core work may overlap)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = max(n_ops / F32_OPS_PER_S, n_tc_ops / B1_MMA_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -122,17 +133,33 @@ def plain_kernels():
         atlas, brief, fast, hamming, matcher, orientation, proj_matcher)
 
     saved = (atlas.fast_score, atlas.moments_at, brief.brief_words,
-             proj_matcher.hamming_matrix, matcher.hamming_matrix)
+             proj_matcher.hamming_gated_min, matcher.hamming_gated_min)
     atlas.fast_score = fast.fast_score_reference
     atlas.moments_at = orientation.moments_at_reference
     brief.brief_words = brief.brief_words_reference
-    proj_matcher.hamming_matrix = hamming.hamming_matrix_reference
-    matcher.hamming_matrix = hamming.hamming_matrix_reference
+    proj_matcher.hamming_gated_min = hamming.hamming_gated_min_reference
+    matcher.hamming_gated_min = hamming.hamming_gated_min_reference
     try:
         yield
     finally:
         (atlas.fast_score, atlas.moments_at, brief.brief_words,
-         proj_matcher.hamming_matrix, matcher.hamming_matrix) = saved
+         proj_matcher.hamming_gated_min, matcher.hamming_gated_min) = saved
+
+
+@contextlib.contextmanager
+def recorded(module, name: str, calls: list):
+    """Append the arguments of every call of ``module.name`` to ``calls``."""
+    fn = getattr(module, name)
+
+    def record(*args):
+        calls.append(args)
+        return fn(*args)
+
+    setattr(module, name, record)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
 
 
 def phase_device():
@@ -159,13 +186,15 @@ def phase_build():
 
 def phase_kernels(device):
     """Each kernel against its plain version at the main paths' shapes:
-    all four at the tracking step's, and B2-B4 at the init pair's too (B1
-    sees the same canvas on both)."""
+    all at the tracking step's, and B2-B4 at the init pair's too (B1 sees
+    the same canvas on both); the fused Hamming row minima at the gates the
+    two matchers really give it, and on a tie-heavy case."""
     import torch.nn.functional as F
 
     from orb_slam_tracking_tpu_torch.config import OrbConfig, SystemConfig
-    from orb_slam_tracking_tpu_torch.entry import ENTRY_CAMERA, entry
-    from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming, orientation
+    from orb_slam_tracking_tpu_torch.entry import ENTRY_CAMERA, entry, init_entry
+    from orb_slam_tracking_tpu_torch.ops import (
+        brief, fast, hamming, matcher, orientation, proj_matcher)
     from orb_slam_tracking_tpu_torch.ops.atlas import atlas_layout, build_atlas
     from orb_slam_tracking_tpu_torch.ops.extractor import ExtractorConstants
     from orb_slam_tracking_tpu_torch.ops.pattern import EDGE_THRESHOLD, HALF_PATCH_SIZE
@@ -183,10 +212,12 @@ def phase_kernels(device):
     def stacked(x):
         return torch.stack(x) if isinstance(x, tuple) else x
 
-    def check(name, kern, plain, work, library=None):
+    def check(name, kern, plain, work, library=None, library_whole=None):
         """-> the kernel's numbers: exact against plain; device ms per call
         from the profiler (``ms``) and CUDA-event ms per call, which holds
-        the wrapper's host work too (``call_ms``); the bound."""
+        the wrapper's host work too (``call_ms``); the bound. ``library`` is
+        timed; its difference to the kernel is taken of ``library_whole``
+        (the library call with what surrounds it) where that is given."""
         got, ref = stacked(kern()), stacked(plain())
         torch.cuda.synchronize()
         if got.shape != ref.shape or got.dtype != ref.dtype:
@@ -202,14 +233,18 @@ def phase_kernels(device):
             t[f"{key}ms"] = device_ms(fn, RUNS)
             t[f"{key}call_ms"] = time_ms(fn)
         b_ms, b_by = bound_ms(*work)
-        lib = "" if library is None else (
-            f"; library {t['library_ms']:.4f} / {t['library_call_ms']:.4f} ms (max abs "
-            f"diff to the kernel {float((stacked(library()).double() - got.double()).abs().max()):.3g})")
+        tc = f", {work[2]:.4g} b1 tensor-core ops" if len(work) > 2 else ""
+        lib = ""
+        if library is not None:
+            lib_err = float((stacked((library_whole or library)()).double() - got.double())
+                            .abs().max())
+            lib = (f"; library {t['library_ms']:.4f} / {t['library_call_ms']:.4f} ms (max abs "
+                   f"diff to the kernel {lib_err:.3g})")
         log("kernels", f"{name} {tuple(got.shape)}: exact; device / call ms: kernel "
             f"{t['ms']:.4f} / {t['call_ms']:.4f}, plain {t['plain_ms']:.4f} / "
             f"{t['plain_call_ms']:.4f}{lib} (profiler over {RUNS} calls / median of "
             f"{RUNS} CUDA-event calls); bound {b_ms:.4f} ms ({b_by}: {work[0]:.4g} B, "
-            f"{work[1]:.4g} ops)")
+            f"{work[1]:.4g} ops{tc})")
         t.setdefault("library_ms", None)
         return {"max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
                 "shape": list(got.shape)}
@@ -229,11 +264,12 @@ def phase_kernels(device):
         return float(torch.unique(idx).numel())
 
     # B1: every canvas pixel read once, every score written once; per pixel
-    # 16 differences and 16 x (2 x 8 min + 2 max) + 1 max
+    # 16 differences and, per side, the 16 nine-tap arc extrema shared (64
+    # two-input min/max) and their max (15), and 1 max of the sides
     score_numel = (canvas.shape[0] - 2 * EDGE_THRESHOLD) * (canvas.shape[1] - 2 * EDGE_THRESHOLD)
     b1 = check("fast_score", lambda: fast.fast_score(canvas, EDGE_THRESHOLD),
                lambda: fast.fast_score_reference(canvas, EDGE_THRESHOLD),
-               (4.0 * (canvas.numel() + score_numel), 305.0 * score_numel))
+               (4.0 * (canvas.numel() + score_numel), 175.0 * score_numel))
 
     # B2: the distinct pixels the samples touch, both coordinate arrays,
     # the words; one compare per pair
@@ -252,19 +288,101 @@ def phase_kernels(device):
     b2 = b2_at(cfg)
     b2["init_shape"] = b2_at(init_cfg)
 
-    # B3: both descriptor sets read, the matrix written; 8 x (xor, popcount,
-    # add) per entry
+    # B3: both descriptor sets read, the matrix written; per entry one
+    # 256-bit and + popcount on the b1 tensor cores (2 x 256 ops) and 3 int ops
+    # (pop(a) + pop(b) - 2 inner). The library call: the JAX package's
+    # default formulation, a bf16 product of {0, 1} bit planes (unpacked
+    # outside the timed call) with f32 output, exact since inner <= 256
+    shifts = torch.arange(32, device=device, dtype=torch.int32)
+
+    def planes(d):
+        return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], 256).to(torch.bfloat16)
+
     def b3_at(a, n):
         b = torch.randint(-2**31, 2**31, (n, 8), generator=g, device=device,
                           dtype=torch.int64).to(torch.int32)
-        work = (32.0 * (a.shape[0] + n) + 4.0 * a.shape[0] * n, 24.0 * a.shape[0] * n)
+        pa, pb = planes(a), planes(b)
+        p1, p2 = pa.sum(1, dtype=torch.int32), pb.sum(1, dtype=torch.int32)
+        try:  # f32 output where this torch has it, else bf16 (also exact)
+            torch.mm(pa, pb.T, out_dtype=torch.float32)
+            inner = lambda: torch.mm(pa, pb.T, out_dtype=torch.float32)  # noqa: E731
+        except (TypeError, RuntimeError):
+            inner = lambda: torch.mm(pa, pb.T)  # noqa: E731
+        def whole():
+            return p1[:, None] + p2[None, :] - 2 * inner().to(torch.int32)
+
+        if not torch.equal(whole(), hamming.hamming_matrix_reference(a, b)):
+            raise AssertionError("the bf16 bit-plane formulation is not exact")
+        log("kernels", f"hamming_matrix library call: torch.mm of bf16 planes -> "
+            f"{inner().dtype}; p1 + p2 - 2 inner equals the plain version exactly")
+        P, N = a.shape[0], n
+        work = (32.0 * (P + N) + 4.0 * P * N, 3.0 * P * N, 512.0 * P * N)
         return check("hamming_matrix", lambda: hamming.hamming_matrix(a, b),
-                     lambda: hamming.hamming_matrix_reference(a, b), work)
+                     lambda: hamming.hamming_matrix_reference(a, b), work, library=inner,
+                     library_whole=whole)
 
     b3 = b3_at(map_desc, cfg.max_keypoints)
     init_desc = torch.randint(-2**31, 2**31, (init_cfg.max_keypoints, 8), generator=g,
                               device=device, dtype=torch.int64).to(torch.int32)
     b3["init_shape"] = b3_at(init_desc, init_cfg.max_keypoints)
+    ragged = init_desc[:999], init_desc[1000:1777]  # odd N, rows and columns past a tile
+    if not torch.equal(hamming.hamming_matrix(*ragged), hamming.hamming_matrix_reference(*ragged)):
+        raise AssertionError("hamming_matrix differs from plain at [999, 777]")
+
+    # B3 fused: descriptors, the per-row (uv, r, use, lo, hi, ok: 22 B) and
+    # per-column (xy, r, oct, ok: 17 B) gates read once, 3 x int32 per row
+    # written; per pair 2 x 256 b1 tensor-core ops and ~10 gate and
+    # reduction ops on the CUDA cores, which set the bound. At the gates of the tracking step's first match and of the init
+    # pair's match, recorded from one run of each path
+    def fused(args, label):
+        P, N = args[0].shape[0], args[1].shape[0]
+        work = (32.0 * (P + N) + 34.0 * P + 17.0 * N, 10.0 * P * N, 512.0 * P * N)
+        k = check("hamming_gated_min", lambda: hamming.hamming_gated_min(*args),
+                  lambda: hamming.hamming_gated_min_reference(*args), work)
+        best, _, second = hamming.hamming_gated_min(*args)
+        log("kernels", f"hamming_gated_min at {label}: {int((best < hamming.BIG).sum())}/{P} "
+            f"rows with an eligible column, {int(((second == best) & (best < hamming.BIG)).sum())} "
+            "with second == best")
+        return k
+
+    calls = []
+    fwd, fargs = entry(device)
+    with recorded(proj_matcher, "hamming_gated_min", calls):
+        fwd(*fargs)
+    b3f = fused(calls[0], "the tracking step's first match")
+    calls.clear()
+    fwd, fargs = init_entry(device)[:2]
+    with recorded(matcher, "hamming_gated_min", calls):
+        fwd(*fargs)
+    b3f["init_shape"] = fused(calls[0], "the init pair's match")
+
+    # ties: descriptors drawn from 8, integer coordinates (pairs on the
+    # window's edge), radii 0-3 (rows with nothing eligible), a ragged N
+    P, N = 2048, 1001
+    pool = torch.randint(-2**31, 2**31, (8, 8), generator=g, device=device,
+                         dtype=torch.int64).to(torch.int32)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=device, dtype=torch.int32)
+
+    def coin(shape, p):
+        return torch.rand(shape, generator=g, device=device) < p
+
+    lo = ints(-1, 4, (P,))
+    tie = (pool[ints(0, 8, (P,)).long()], pool[ints(0, 8, (N,)).long()],
+           ints(0, 64, (P, 2)).float(), ints(0, 4, (P,)).float(), coin((P,), 0.7),
+           lo, lo + ints(0, 3, (P,)), coin((P,), 0.9),
+           ints(0, 64, (N, 2)).float(), ints(0, 4, (N,)).float(), ints(0, 5, (N,)),
+           coin((N,), 0.9))
+    got, ref = hamming.hamming_gated_min(*tie), hamming.hamming_gated_min_reference(*tie)
+    if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+        raise AssertionError("hamming_gated_min differs from plain on the tie case")
+    n_none = int((ref[0] == hamming.BIG).sum())
+    n_tied = int(((ref[2] == ref[0]) & (ref[0] < hamming.BIG)).sum())
+    if n_none == 0 or n_tied == 0:
+        raise AssertionError(f"the tie case exercised {n_none} empty rows, {n_tied} ties")
+    log("kernels", f"hamming_gated_min tie case [{P}, {N}]: exact; {n_none} rows with "
+        f"nothing eligible, {n_tied} with second == best")
 
     # B4 at both paths' keypoints: the distinct disc pixels, the centres,
     # both moments; per keypoint 5 ops per (row, dx) pair and 91 for the
@@ -309,17 +427,29 @@ def phase_kernels(device):
 
     # each kernel's source and the line of the TPU kernel it replaces
     return [{"name": name, "route": "cuda",
-             "source": f"orb_slam_tracking_tpu_torch/csrc/{name}.cu",
+             "source": f"orb_slam_tracking_tpu_torch/csrc/{src}.cu",
              "replaces": f"orb_slam_tracking_tpu/ops/pallas_kernels.py:{line}", **k}
-            for name, line, k in (("fast_score", 474, b1), ("brief_words", 288, b2),
-                                  ("hamming_matrix", 58, b3), ("moments_at", 430, b4))]
+            for name, src, line, k in (
+                ("fast_score", "fast_score", 474, b1), ("brief_words", "brief_words", 288, b2),
+                ("hamming_matrix", "hamming_matrix", 58, b3),
+                ("hamming_gated_min", "hamming_matrix", 58, b3f),
+                ("moments_at", "moments_at", 430, b4))]
 
 
 def _wrappers():
     from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming, orientation
 
     return {"fast_score": fast.fast_score, "brief_words": brief.brief_words,
-            "moments_at": orientation.moments_at, "hamming_matrix": hamming.hamming_matrix}
+            "moments_at": orientation.moments_at, "hamming_matrix": hamming.hamming_matrix,
+            "hamming_gated_min": hamming.hamming_gated_min}
+
+
+# kernel launches per tracking frame and per init pair: both matchers take
+# the fused Hamming row minima, so the [P, N] matrix kernel is off the paths
+PER_FRAME = {"fast_score": 1, "brief_words": 1, "moments_at": 1, "hamming_matrix": 0,
+             "hamming_gated_min": 2}
+PER_PAIR = {"fast_score": 2, "brief_words": 2, "moments_at": 2, "hamming_matrix": 0,
+            "hamming_gated_min": 1}
 
 
 def reset_counters():
@@ -348,8 +478,7 @@ def phase_slice(device):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = read_counters()
-    want = {"fast_score": FRAMES, "brief_words": FRAMES, "moments_at": FRAMES,
-            "hamming_matrix": 2 * FRAMES}
+    want = {k: v * FRAMES for k, v in PER_FRAME.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     ms = statistics.median(times)
@@ -364,6 +493,40 @@ def phase_slice(device):
     log("slice", f"{FRAMES} frames: median {ms:.3f} ms/frame, min {min(times):.3f} "
         f"(host clock to synchronize); launches {counts}; n_inliers {int(out[2])}, "
         f"n_matches {int(out[3])}/{int(out[4])}; no host sync in a frame")
+
+    # the device memory each match of a frame allocates beyond what it is
+    # given: with the fused row minima, no [P, N] int32 matrix (32 MB here)
+    from orb_slam_tracking_tpu_torch.slam import fused_step
+
+    def peaks(run):
+        grown = []
+        search = fused_step.search_by_projection
+
+        def measured(*a, **kw):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = search(*a, **kw)
+            torch.cuda.synchronize()
+            grown.append(torch.cuda.max_memory_allocated() - before)
+            return res
+
+        fused_step.search_by_projection = measured
+        try:
+            run()
+        finally:
+            fused_step.search_by_projection = search
+        return grown
+
+    matrix_bytes = 4 * args[2].shape[0] * OrbConfig(n_features=1000).max_keypoints
+    grown = peaks(lambda: forward(*args))
+    with plain_kernels():
+        grown_plain = peaks(lambda: forward(*args))
+    log("slice", f"device memory a match allocates: {[f'{b / 2**20:.3f}' for b in grown]} MiB "
+        f"(plain versions {[f'{b / 2**20:.3f}' for b in grown_plain]} MiB; the [P, N] int32 "
+        f"matrix is {matrix_bytes / 2**20:.3f} MiB)")
+    if len(grown) != 2 or max(grown) >= matrix_bytes:
+        raise AssertionError(f"a match allocated {grown} bytes: a [P, N] matrix or more")
 
     step = TrackingStep(ENTRY_CAMERA, OrbConfig(n_features=1000), MatcherConfig(),
                         TrackerConfig(), device=device)
@@ -584,8 +747,7 @@ def phase_init(device):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counters()
-        want = {"fast_score": 2 * PAIRS, "brief_words": 2 * PAIRS,
-                "moments_at": 2 * PAIRS, "hamming_matrix": PAIRS}
+        want = {k: v * PAIRS for k, v in PER_PAIR.items()}
         if counts != want:
             raise AssertionError(f"launch counts {counts} over {PAIRS} pairs, expected {want}")
         tv = out.two_view
@@ -662,7 +824,8 @@ def main() -> int:
     for k in results:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-        if k["launches"] == 0:
+        on_path = PER_FRAME[k["name"]] + PER_PAIR[k["name"]] > 0
+        if on_path and k["launches"] == 0:
             raise AssertionError(f"{k['name']} was launched on no path")
     print(json.dumps({"kernels": results}))
     print(smi)

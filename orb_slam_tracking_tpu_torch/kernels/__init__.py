@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain ``extern "C"`` interface. At first use they are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library under
+The sources have a plain ``extern "C"`` interface. At first use each is
+compiled with ``nvcc`` for ``sm_90a``, all at once in parallel, and the
+objects are linked into one shared library under
 ``build/kernels/<hash of the sources>/`` at the root of the checkout,
 cached by that hash and guarded by a lock file, then loaded with
 ``ctypes``. Nothing here runs at import time: the build is reached only
@@ -29,7 +30,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
 _LIB_NAME = "libosltt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "osltt_fast_score": (_P, _P, _I, _I, _I, _P),
     "osltt_brief_words": (_P, _I, _I, _P, _P, _P, _I, _P),
     "osltt_hamming_matrix": (_P, _P, _P, _I, _I, _P),
+    "osltt_hamming_gated_min": (_P, _P, _I, _I) + (_P,) * 14,
     "osltt_moments_at": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _P),
 }
 
@@ -74,23 +76,42 @@ def _nvcc() -> str:
 
 
 def _build(out_dir: Path) -> Path:
-    """Compile into ``out_dir`` under an exclusive lock; return the .so."""
+    """Compile into ``out_dir`` under an exclusive lock (one nvcc per source,
+    all started together, then one link); return the .so."""
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / _LIB_NAME
     with open(out_dir / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib_path.is_file():
             return lib_path
-        tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in _sources() if p.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        (out_dir / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = out_dir / f".{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+            objs.append(obj)
+        log, failed = [], []
+        for cmd, proc in procs:
+            out, _ = proc.communicate(timeout=900)
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{Path(cmd[-1]).name} ({proc.returncode}):\n{out}")
+        tmp = out_dir / f".{_LIB_NAME}.{tag}"
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        (out_dir / "nvcc.log").write_text("".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, lib_path)
     return lib_path
 

@@ -1,13 +1,13 @@
 """Two-frame initialization matching (counterpart of ``ops/matcher.py``,
 ORB-SLAM's ``SearchForInitialization``).
 
-One dense masked program over the [N1, N2] Hamming matrix from the
-``hamming_matrix`` kernel wrapper: a coordinate window in place of the
-grid lookup, best and second best with the ratio test, a mutual
-resolution (per frame-2 keypoint the closest claimant wins, the lower
-frame-1 index breaking ties) in place of the reference's in-order
-stealing, and the 30-bin rotation histogram keeping the top three bins
-with the 0.1x gates of ``ComputeThreeMaxima``.
+Best and second best per frame-1 keypoint inside a coordinate window (in
+place of the grid lookup) come from the ``hamming_gated_min`` kernel
+wrapper, which never forms the [N1, N2] Hamming matrix; then the ratio
+test, a mutual resolution (per frame-2 keypoint the closest claimant
+wins, the lower frame-1 index breaking ties) in place of the reference's
+in-order stealing, and the 30-bin rotation histogram keeping the top
+three bins with the 0.1x gates of ``ComputeThreeMaxima``.
 
 ``jax.lax.top_k`` puts the lower bin first on ties; here a stable
 descending sort gives the same order. ``.at[].min`` becomes
@@ -23,11 +23,10 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import MatcherConfig
-from .hamming import hamming_matrix
+from .hamming import BIG, hamming_gated_min
 
 __all__ = ["MatchResult", "search_for_initialization", "compact_matches"]
 
-_BIG = 1 << 20
 _SENTINEL = torch.iinfo(torch.int32).max
 
 
@@ -54,21 +53,19 @@ def search_for_initialization(
     n1, n2 = desc1.shape[0], desc2.shape[0]
     dev = desc1.device
 
-    D = hamming_matrix(desc1, desc2)  # [N1, N2] int32
+    # only octave-0 keypoints of both frames, inside the window on both
+    # axes. The gates fold into what exists: a frame-1 row takes part only
+    # at octave 0 and then admits frame-2 octaves in [octave1, octave1], so
+    # 0 alone; rows that take part use the window as their radius (one
+    # constant vector, sliced for the unused column radius)
+    oct1, oct2 = octave1.to(torch.int32), octave2.to(torch.int32)
+    row_ok = valid1 & (oct1 == 0)
+    window = torch.full((max(n1, n2),), cfg.window_size, dtype=torch.float32, device=dev)
+    best, best_j, second = hamming_gated_min(
+        desc1, desc2, xy1, window[:n1], row_ok, oct1, oct1, row_ok,
+        xy2, window[:n2], oct2, valid2)
 
-    dx = xy1[:, 0:1] - xy2[None, :, 0]
-    dy = xy1[:, 1:2] - xy2[None, :, 1]
-    r = cfg.window_size
-    eligible = (valid1[:, None] & valid2[None, :]
-                & (octave1 == 0)[:, None] & (octave2 == 0)[None, :]
-                & (dx.abs() <= r) & (dy.abs() <= r))
-    Dm = torch.where(eligible, D, _BIG)
-
-    best, best_j = Dm.min(dim=1)  # first index on ties, as jnp.argmin
-    cols = torch.arange(n2, device=dev)
-    second = torch.where(cols[None, :] == best_j[:, None], _BIG, Dm).amin(dim=1)
-
-    had_candidate = best < _BIG
+    had_candidate = best < BIG
     pass_low = best <= cfg.th_low
     pass_ratio = best.float() < cfg.nn_ratio * second.float()
     accept = had_candidate & pass_low & pass_ratio
@@ -78,15 +75,16 @@ def search_for_initialization(
     rows = torch.arange(n1, dtype=torch.int32, device=dev)
     key = torch.where(accept, torch.where(accept, best, 0) * n1 + rows, _SENTINEL)
     min_key = torch.full((n2,), _SENTINEL, dtype=torch.int32, device=dev)
-    min_key.scatter_reduce_(0, best_j, key, "amin")
-    keep = accept & (key == min_key[best_j])
+    j = best_j.to(torch.int64)
+    min_key.scatter_reduce_(0, j, key, "amin")
+    keep = accept & (key == min_key[j])
 
     n_reject_distance = (had_candidate & ~pass_low).sum(dtype=torch.int32)
     n_reject_ratio = (had_candidate & pass_low & ~pass_ratio).sum(dtype=torch.int32)
 
     if cfg.check_orientation:
         L = cfg.histo_length
-        rot = angle1 - angle2[best_j]
+        rot = angle1 - angle2[j]
         rot = torch.where(rot < 0, rot + 360.0, rot)
         b = torch.round(rot * (L / 360.0)).to(torch.int32)
         b = torch.where(b == L, 0, b)
@@ -105,8 +103,8 @@ def search_for_initialization(
         n_reject_orientation = torch.zeros((), dtype=torch.int32, device=dev)
 
     return MatchResult(
-        matches12=torch.where(keep, best_j.to(torch.int32), -1),
-        distances=torch.where(keep, best, _BIG),
+        matches12=torch.where(keep, best_j, -1),
+        distances=torch.where(keep, best, BIG),
         n_matches=keep.sum(dtype=torch.int32),
         n_reject_distance=n_reject_distance,
         n_reject_ratio=n_reject_ratio,

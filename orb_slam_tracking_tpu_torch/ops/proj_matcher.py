@@ -7,7 +7,9 @@ octave), under ``th_high``, with mutual resolution: one map point per
 keypoint, the closest winning and the lower point index breaking ties.
 Per-point viewing statistics (normal, dmin, dmax) drive the
 ``Frame::isInFrustum`` gates; ``dmax == 0`` disables them for that point.
-The distance matrix comes from the ``hamming_matrix`` kernel wrapper.
+The per-point least distance inside the window comes from the
+``hamming_gated_min`` kernel wrapper, which never forms the [P, N]
+distance matrix.
 """
 
 from __future__ import annotations
@@ -18,11 +20,12 @@ from typing import NamedTuple
 import torch
 
 from ..config import MatcherConfig
-from .hamming import hamming_matrix
+from .hamming import hamming_gated_min
 
 __all__ = ["ProjMatchResult", "search_by_projection"]
 
 _SENTINEL = torch.iinfo(torch.int32).max
+_INT_MIN = torch.iinfo(torch.int32).min
 
 
 class ProjMatchResult(NamedTuple):
@@ -68,36 +71,28 @@ def search_by_projection(
     pred = torch.ceil(torch.log(ratio.clamp_min(1e-9)) / math.log(scale_factor))
     pred = pred.to(torch.int32).clamp(0, n_levels - 1)
     r_pt = torch.where(has, radius * scale_factor ** pred.to(torch.float32), 0.0)
-    ko = kp_octave.to(torch.int32)
-    octave_gate = (~has[:, None]
-                   | ((ko[None, :] >= pred[:, None] - 1)
-                      & (ko[None, :] <= pred[:, None] + 1)))
-
-    D = hamming_matrix(map_desc, kp_desc)  # [P, N]
-    dx = (uv[:, 0:1] - kp_xy[None, :, 0]).abs()
-    dy = (uv[:, 1:2] - kp_xy[None, :, 1]).abs()
     r_kp = radius * scale_factor ** kp_octave.to(torch.float32)  # [N]
-    r_eff = torch.where(has[:, None], r_pt[:, None], r_kp[None, :])
-    eligible = (visible[:, None] & kp_valid[None, :] & (dx <= r_eff)
-                & (dy <= r_eff) & octave_gate)
-    Dm = torch.where(eligible, D, 1 << 20)
-
-    best = Dm.amin(dim=1)
-    best_j = Dm.argmin(dim=1)  # first index on ties, as jnp.argmin
+    # octave gate: points with statistics take [pred - 1, pred + 1], others all
+    oct_lo = torch.where(has, pred - 1, _INT_MIN)
+    oct_hi = torch.where(has, pred + 1, _SENTINEL)
+    best, best_j, _ = hamming_gated_min(
+        map_desc, kp_desc, uv, r_pt, has, oct_lo, oct_hi, visible,
+        kp_xy, r_kp, kp_octave.to(torch.int32), kp_valid)
     accept = (best <= cfg.th_high) & visible
 
     rows = torch.arange(P, dtype=torch.int32, device=map_pts.device)
     key = torch.where(accept, best * P + rows, _SENTINEL)
     min_key = torch.full((N,), _SENTINEL, dtype=torch.int32,
                          device=map_pts.device)
-    min_key.scatter_reduce_(0, best_j, key, "amin")
-    keep = accept & (key == min_key[best_j])
+    j = best_j.to(torch.int64)
+    min_key.scatter_reduce_(0, j, key, "amin")
+    keep = accept & (key == min_key[j])
 
-    kp_for_point = torch.where(keep, best_j.to(torch.int32), -1)
+    kp_for_point = torch.where(keep, best_j, -1)
     # keypoint -> point: rows not kept write to a spare slot N, dropped
     point_for_kp = torch.full((N + 1,), -1, dtype=torch.int32,
                               device=map_pts.device)
-    point_for_kp.scatter_(0, torch.where(keep, best_j, N), rows)
+    point_for_kp.scatter_(0, torch.where(keep, j, N), rows)
     return ProjMatchResult(
         kp_for_point=kp_for_point,
         point_for_kp=point_for_kp[:N],

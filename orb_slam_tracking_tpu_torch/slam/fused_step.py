@@ -10,7 +10,8 @@ Per frame:
 (resize matrices, Gaussian taps, BRIEF pattern), built once. The step has
 fixed shapes and validity masks and never syncs the host, so it can later
 be captured as one CUDA graph. On the card it launches one FAST kernel,
-one moments kernel, one BRIEF kernel and two Hamming kernels.
+one moments kernel, one BRIEF kernel and two fused Hamming row-minimum
+kernels (``hamming_gated_min``, one per match).
 """
 
 from __future__ import annotations

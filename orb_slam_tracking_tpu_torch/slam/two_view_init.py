@@ -10,7 +10,7 @@ Per pair:
 ``TwoViewInitializer`` is an ``nn.Module`` holding the extractor's
 constants for ``init_orb`` and ``K`` as buffers. On the card a pair
 launches two FAST kernels, two moments kernels, two BRIEF kernels and one
-Hamming kernel. Every match and
+fused Hamming row-minimum kernel (``hamming_gated_min``). Every match and
 hypothesis count is a fixed capacity with a validity mask, so the pair
 runs whether or not it has enough matches; ``success`` carries the
 reference's 100-match gate.

@@ -189,7 +189,7 @@ def test_launch_counters_stay_zero_on_cpu(rng):
     assert orientation.moments_at.launches == 0
 
 
-@pytest.mark.parametrize("call", ["fast", "brief", "hamming", "moments"])
+@pytest.mark.parametrize("call", ["fast", "brief", "hamming", "hamming_gated", "moments"])
 def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
     """Only a CPU tensor may take the plain version; any other device goes
     to the kernel's checks, which refuse it."""
@@ -204,6 +204,12 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
         elif call == "moments":
             yx = torch.empty((3,), dtype=torch.int32, device="meta")
             orientation.moments_at(img, yx, yx, pattern.umax_table())
+        elif call == "hamming_gated":
+            f = torch.empty((3,), device="meta")
+            b = torch.empty((3,), dtype=torch.bool, device="meta")
+            i = torch.empty((3,), dtype=torch.int32, device="meta")
+            xy = torch.empty((3, 2), device="meta")
+            hamming.hamming_gated_min(desc, desc, xy, f, b, i, i, b, xy, f, i, b)
         else:
             hamming.hamming_matrix(desc, desc)
 
@@ -216,7 +222,7 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
         "fast_score.cu", "brief_words.cu", "hamming_matrix.cu", "moments_at.cu"}
     assert set(kernels._SIGNATURES) == {
         "osltt_fast_score", "osltt_brief_words", "osltt_hamming_matrix",
-        "osltt_moments_at"}
+        "osltt_hamming_gated_min", "osltt_moments_at"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
