@@ -15,7 +15,9 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
    1,979 T/s on the tensor cores, the larger) and, where one PyTorch call
    computes the same function, that call's time; the fused Hamming row
    minima at the gates of the tracking step's first match and of the init
-   pair's match, and on a tie-heavy case;
+   pair's match, and on a tie-heavy case; the one-pass orientation and
+   description at both paths' keypoints; and the launch floor, the device
+   time of a 1-element ``fill_``;
 4. the fused tracking step at the ``entry()`` operating point (640x480,
    1000 keypoints, an 8192-point map): launch counts per frame, output
    shapes and finiteness, ms per frame, and the device memory each match
@@ -23,9 +25,10 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
 5. tracking a rendered sequence: accuracy against ground truth, and the
    same frames through the plain versions on the card;
 6. extraction of the entry image with the disc moments taken at the
-   keypoints (the port's path) and from the dense ``moment_maps`` pass:
-   identical keypoints, angles and descriptors, and device ms per
-   extraction each way;
+   keypoints (the port's path, inside ``orient_describe``) and from the
+   dense ``moment_maps`` pass followed by the descriptor kernel: identical
+   keypoints, angles and descriptors, and device ms per extraction each
+   way;
 7. two-view initialization at the ``init_entry()`` operating point (a
    rendered 640x480 pair, 2000 keypoints, 200 and 2000 RANSAC hypotheses):
    launch counts per pair, success and pose against
@@ -130,19 +133,18 @@ def import_port() -> None:
 def plain_kernels():
     """Route the main paths' kernel calls to the plain versions."""
     from orb_slam_tracking_tpu_torch.ops import (
-        atlas, brief, fast, hamming, matcher, orientation, proj_matcher)
+        atlas, describe, fast, hamming, matcher, proj_matcher)
 
-    saved = (atlas.fast_score, atlas.moments_at, brief.brief_words,
+    saved = (atlas.fast_score, atlas.orient_describe,
              proj_matcher.hamming_gated_min, matcher.hamming_gated_min)
     atlas.fast_score = fast.fast_score_reference
-    atlas.moments_at = orientation.moments_at_reference
-    brief.brief_words = brief.brief_words_reference
+    atlas.orient_describe = describe.orient_describe_reference
     proj_matcher.hamming_gated_min = hamming.hamming_gated_min_reference
     matcher.hamming_gated_min = hamming.hamming_gated_min_reference
     try:
         yield
     finally:
-        (atlas.fast_score, atlas.moments_at, brief.brief_words,
+        (atlas.fast_score, atlas.orient_describe,
          proj_matcher.hamming_gated_min, matcher.hamming_gated_min) = saved
 
 
@@ -186,15 +188,16 @@ def phase_build():
 
 def phase_kernels(device):
     """Each kernel against its plain version at the main paths' shapes:
-    all at the tracking step's, and B2-B4 at the init pair's too (B1 sees
+    all at the tracking step's, and B2-B4f at the init pair's too (B1 sees
     the same canvas on both); the fused Hamming row minima at the gates the
-    two matchers really give it, and on a tie-heavy case."""
+    two matchers really give it, and on a tie-heavy case; then the launch
+    floor."""
     import torch.nn.functional as F
 
     from orb_slam_tracking_tpu_torch.config import OrbConfig, SystemConfig
     from orb_slam_tracking_tpu_torch.entry import ENTRY_CAMERA, entry, init_entry
     from orb_slam_tracking_tpu_torch.ops import (
-        brief, fast, hamming, matcher, orientation, proj_matcher)
+        brief, describe, fast, hamming, matcher, orientation, proj_matcher)
     from orb_slam_tracking_tpu_torch.ops.atlas import atlas_layout, build_atlas
     from orb_slam_tracking_tpu_torch.ops.extractor import ExtractorConstants
     from orb_slam_tracking_tpu_torch.ops.pattern import EDGE_THRESHOLD, HALF_PATCH_SIZE
@@ -425,6 +428,49 @@ def phase_kernels(device):
     b4 = b4_at(cfg)
     b4["init_shape"] = b4_at(init_cfg)
 
+    # B4f at both paths' keypoints, against the plain chain (moments ->
+    # angle -> rotated, rounded pattern -> rounded blur -> samples -> words):
+    # the angles compared through their int32 bits, beside the words. Bytes:
+    # the distinct disc and sample pixels, the centres and coords, the
+    # pattern, the angles and words. Operations per keypoint: B4's, ~70 for
+    # atan2f, cosf, sinf and the angle's scaling, 19 per pattern point (4
+    # products, 2 adds, 2 rints, 2 adds of xy, 2 conversions, 2 adds of the
+    # pad, 4 clamps, 1 rint of the sample) and 1 compare per pair
+    blurred_raw = gaussian_blur(canvas, consts.gauss)
+
+    def b4f_at(ocfg):
+        xy = place(ocfg)
+        yc = xy[:, 1].to(torch.int32) + EDGE_THRESHOLD
+        xc = xy[:, 0].to(torch.int32) + EDGE_THRESHOLD
+        n = yc.shape[0]
+        args = (canvas, blurred_raw, yc, xc, xy, consts.pattern_xy, umax)
+
+        def joined(fn):
+            def run():
+                angle, desc = fn(*args)
+                return torch.cat([angle.view(torch.int32)[:, None], desc], 1)
+            return run
+
+        angle, _ = describe.orient_describe_reference(*args)
+        sy, sx = brief.brief_coords(xy, angle, consts.pattern_xy, *blurred_raw.shape)
+        pix = (yc.long()[:, None] + dyx[:, 0]) * canvas.shape[1] + xc.long()[:, None] + dyx[:, 1]
+        work = (4.0 * (n_distinct(pix) + n_distinct(sy.long() * blurred_raw.shape[1] + sx)
+                       + 4 * n + consts.pattern_xy.numel() + 9 * n),
+                float((ops_per_kp + 70 + 19 * 512 + 256) * n))
+        return check("orient_describe", joined(describe.orient_describe),
+                     joined(describe.orient_describe_reference), work)
+
+    b4f = b4f_at(cfg)
+    b4f["init_shape"] = b4f_at(init_cfg)
+
+    # the launch floor: the device time of the smallest kernel PyTorch
+    # launches, a 1-element fill_
+    one = torch.empty(1, device=device)
+    log("kernels", f"launch floor: a 1-element fill_ takes "
+        f"{device_ms(lambda: one.fill_(1.0)):.4f} ms device / "
+        f"{time_ms(lambda: one.fill_(1.0)):.4f} ms call (profiler over {RUNS} calls / "
+        f"median of {RUNS} CUDA-event calls)")
+
     # each kernel's source and the line of the TPU kernel it replaces
     return [{"name": name, "route": "cuda",
              "source": f"orb_slam_tracking_tpu_torch/csrc/{src}.cu",
@@ -433,23 +479,27 @@ def phase_kernels(device):
                 ("fast_score", "fast_score", 474, b1), ("brief_words", "brief_words", 288, b2),
                 ("hamming_matrix", "hamming_matrix", 58, b3),
                 ("hamming_gated_min", "hamming_matrix", 58, b3f),
-                ("moments_at", "moments_at", 430, b4))]
+                ("moments_at", "moments_at", 430, b4),
+                ("orient_describe", "orient_describe", 430, b4f))]
 
 
 def _wrappers():
-    from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming, orientation
+    from orb_slam_tracking_tpu_torch.ops import brief, describe, fast, hamming, orientation
 
     return {"fast_score": fast.fast_score, "brief_words": brief.brief_words,
             "moments_at": orientation.moments_at, "hamming_matrix": hamming.hamming_matrix,
-            "hamming_gated_min": hamming.hamming_gated_min}
+            "hamming_gated_min": hamming.hamming_gated_min,
+            "orient_describe": describe.orient_describe}
 
 
 # kernel launches per tracking frame and per init pair: both matchers take
-# the fused Hamming row minima, so the [P, N] matrix kernel is off the paths
-PER_FRAME = {"fast_score": 1, "brief_words": 1, "moments_at": 1, "hamming_matrix": 0,
-             "hamming_gated_min": 2}
-PER_PAIR = {"fast_score": 2, "brief_words": 2, "moments_at": 2, "hamming_matrix": 0,
-            "hamming_gated_min": 1}
+# the fused Hamming row minima, so the [P, N] matrix kernel is off the paths;
+# the extractor orients and describes in one kernel, so the standalone
+# moments and descriptor kernels are off them too
+PER_FRAME = {"fast_score": 1, "brief_words": 0, "moments_at": 0, "hamming_matrix": 0,
+             "hamming_gated_min": 2, "orient_describe": 1}
+PER_PAIR = {"fast_score": 2, "brief_words": 0, "moments_at": 0, "hamming_matrix": 0,
+            "hamming_gated_min": 1, "orient_describe": 2}
 
 
 def reset_counters():
@@ -650,29 +700,32 @@ def phase_sequence(device):
 
 @contextlib.contextmanager
 def dense_moments():
-    """Route the extractor's disc moments through the dense ``moment_maps``
-    canvas pass (the JAX package's default branch), read at the keypoints."""
-    from orb_slam_tracking_tpu_torch.ops import atlas, orientation
+    """Route the extractor's orientation through the dense ``moment_maps``
+    canvas pass (the JAX package's default branch), read at the keypoints,
+    and its descriptors through the descriptor kernel (``brief_words``)."""
+    from orb_slam_tracking_tpu_torch.ops import atlas, brief, orientation
     from orb_slam_tracking_tpu_torch.ops.pattern import EDGE_THRESHOLD
 
-    def dense_at(canvas, yc, xc, umax):
-        m10, m01 = orientation.moment_maps(canvas, umax)
-        y, x = yc.long() - EDGE_THRESHOLD, xc.long() - EDGE_THRESHOLD
-        return m10[y, x], m01[y, x]
+    def dense_at(canvas, blurred, yc, xc, xy, pattern_xy, umax, pad=EDGE_THRESHOLD):
+        m10, m01 = orientation.moment_maps(canvas, umax, pad)
+        y, x = yc.long() - pad, xc.long() - pad
+        angle = orientation.angles_from_moments(m10[y, x], m01[y, x])
+        sy, sx = brief.brief_coords(xy, angle, pattern_xy, *blurred.shape, pad)
+        return angle, brief.brief_words(torch.round(blurred).contiguous(), sy, sx)
 
-    saved = atlas.moments_at
-    atlas.moments_at = dense_at
+    saved = atlas.orient_describe
+    atlas.orient_describe = dense_at
     try:
         yield
     finally:
-        atlas.moments_at = saved
+        atlas.orient_describe = saved
 
 
 def phase_kp_moments(device):
     """Extraction of the entry image with the disc moments at the keypoints
-    (``moments_at``, the port's path) and from the dense ``moment_maps``
-    pass: the outputs, and device ms per extraction each way (the
-    measurement behind the port taking the per-keypoint path)."""
+    (inside ``orient_describe``, the port's path) and from the dense
+    ``moment_maps`` pass: the outputs, and device ms per extraction each
+    way (the measurement behind the port taking the per-keypoint path)."""
     from orb_slam_tracking_tpu_torch.config import OrbConfig, SystemConfig
     from orb_slam_tracking_tpu_torch.convert import keypoints_to_numpy
     from orb_slam_tracking_tpu_torch.entry import ENTRY_CAMERA, entry
@@ -688,7 +741,7 @@ def phase_kp_moments(device):
             reset_counters()
             with ctx():
                 out[way] = keypoints_to_numpy(orb_extract(image, cfg, consts))
-            if read_counters()["moments_at"] != int(way == "keypoints"):
+            if read_counters()["orient_describe"] != int(way == "keypoints"):
                 raise AssertionError(f"{way}: {read_counters()} launches")
         off, on_ = out["dense"], out["keypoints"]
         valid = off["valid"] | on_["valid"]

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "osltt_hamming_matrix": (_P, _P, _P, _I, _I, _P),
     "osltt_hamming_gated_min": (_P, _P, _I, _I) + (_P,) * 14,
     "osltt_moments_at": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _P),
+    "osltt_orient_describe": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                              _I, _P),
 }
 
 

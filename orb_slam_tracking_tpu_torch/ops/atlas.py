@@ -3,15 +3,16 @@
 
 Each level carries its own 19-px reflect apron and the blocks are stacked
 vertically, so the FAST score and the blur each run once over the canvas,
-and the disc moments and the descriptor sampler once over all keypoints.
+and the orientation and the descriptor once over all keypoints.
 Per-level work (eligibility border, the dual-threshold cell fallback, NMS,
 budgeted selection) runs on static slices of the canvas score map.
 
-The disc moments are taken at the selected keypoints only
-(``moments_at``), the JAX package's ``ORB_TPU_KP_MOMENTS=1`` branch, not
-by its default dense ``moment_maps`` canvas pass: the two give identical
-angles, and the keypoint path takes less device time on the H100
-(PERF.md).
+The disc moments are taken at the selected keypoints only, the JAX
+package's ``ORB_TPU_KP_MOMENTS=1`` branch, not by its default dense
+``moment_maps`` canvas pass: the two give identical angles, and the
+keypoint path takes less device time on the H100 (PERF.md). One call,
+``orient_describe``, takes the moments, the angle and the descriptor of
+every keypoint.
 """
 
 from __future__ import annotations
@@ -24,9 +25,8 @@ import torch.nn.functional as F
 
 from ..config import OrbConfig
 from ..types import Keypoints
-from .brief import descriptors_at
+from .describe import orient_describe
 from .fast import cell_reduce_max, fast_score
-from .orientation import angles_from_moments, moments_at
 from .pattern import EDGE_THRESHOLD, PATCH_SIZE
 from .pyramid import gaussian_blur, reflect_pad, resize
 from .select import select_level
@@ -123,8 +123,7 @@ def extract_from_canvas(canvas: torch.Tensor, lay: AtlasLayout,
     # absolute canvas pixel of each keypoint (atlas.py:191-193)
     yc = xy_c[:, 1].to(torch.int32) + _PAD
     xc = xy_c[:, 0].to(torch.int32) + _PAD
-    angle = angles_from_moments(*moments_at(canvas, yc, xc, umax))
-    desc = descriptors_at(blurred_c, xy_c, angle, pattern_xy)
+    angle, desc = orient_describe(canvas, blurred_c, yc, xc, xy_c, pattern_xy, umax)
 
     n = xy_c.shape[0]
     cap = cfg.max_keypoints

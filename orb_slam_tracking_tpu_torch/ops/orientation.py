@@ -4,7 +4,7 @@
 pixel with the JAX package's ~95 shifted adds, in the same order, so the
 sums round identically; ``angles_at`` gathers them at the keypoints.
 The extractor does not take this dense pass: it is the reference that
-``moments_at`` is held to.
+the per-keypoint moments are held to.
 
 ``moments_at`` computes the same moments only at given keypoints: the
 wrapper of the CUDA kernel ``csrc/moments_at.cu`` (which replaces the TPU
@@ -12,7 +12,8 @@ kernel ``moments_at_pallas``). On CPU tensors it runs
 ``moments_at_reference``, which performs at each keypoint the f32
 operations ``moment_maps`` performs at that pixel, in the same order, so
 the two agree bit for bit. ``moments_at.launches`` counts the kernel's
-launches.
+launches. The extractor's path takes the same moments inside
+``ops.describe.orient_describe``, whose kernel shares this one's body.
 """
 
 from __future__ import annotations

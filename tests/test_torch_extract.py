@@ -21,7 +21,7 @@ from orb_slam_tracking_tpu.ops import select as jx_select
 from orb_slam_tracking_tpu.ops.extractor import orb_extract as jx_orb_extract
 from orb_slam_tracking_tpu.utils import synthetic as jx_synthetic
 from orb_slam_tracking_tpu_torch.config import CameraConfig, OrbConfig
-from orb_slam_tracking_tpu_torch.ops import atlas, orientation, pyramid, select
+from orb_slam_tracking_tpu_torch.ops import atlas, describe, orientation, pyramid, select
 from orb_slam_tracking_tpu_torch.ops.extractor import ExtractorConstants, orb_extract
 from orb_slam_tracking_tpu_torch.ops.fast import cell_reduce_max
 from orb_slam_tracking_tpu_torch.ops.pattern import umax_table
@@ -234,7 +234,8 @@ def test_kp_moments_extraction_equals_dense(monkeypatch, kind):
     """The extractor takes the moments at the keypoints only (the JAX
     package's ORB_TPU_KP_MOMENTS=1 branch); its output is identical to
     the same extraction with the moments read off the dense maps (the JAX
-    package's default branch)."""
+    package's default branch). On the CPU the moments are those of
+    ``orient_describe``'s plain chain, which is patched here."""
     _, canvas = _jax_extract(kind)
     canvas = torch.from_numpy(canvas)
     lay = atlas.atlas_layout(_H, _W, _CFG)
@@ -254,7 +255,7 @@ def test_kp_moments_extraction_equals_dense(monkeypatch, kind):
                 orb_extract(img, _CFG, consts))
 
     got = run()
-    monkeypatch.setattr(atlas, "moments_at", dense_at)
+    monkeypatch.setattr(describe, "moments_at_reference", dense_at)
     ref = run()
     assert calls == [sum(_CFG.features_per_level())] * 2
     for g, r in zip(got, ref, strict=True):

@@ -232,35 +232,106 @@ def _up_to_scale(a, b):
     return a, b * sign
 
 
-def _gap_ratio(x1, x2, solver):
-    """lambda_1 / (lambda_2nd - lambda_min) of each set's AᵀA, in float64
-    from the normalised points: how far f32 rounding of AᵀA can turn its
-    null vector (the eigenvector perturbation bound)."""
-    x1n = homography.normalize_points(_t(x1).double())[0].numpy()
-    x2n = homography.normalize_points(_t(x2).double())[0].numpy()
+_U = 2.0 ** -24  # unit roundoff of float32
+
+
+def _normalize64(x, w):
+    """``normalize_points`` in float64: (xn, T) with xn = T x."""
+    x = x.astype(np.float64)
+    wk = np.ones(x.shape[:-1]) if w is None else w.astype(np.float64)
+    tot = wk.sum(-1)[..., None, None]
+    mean = (x * wk[..., None]).sum(-2, keepdims=True) / tot
+    d = x - mean
+    s = tot / (np.abs(d) * wk[..., None]).sum(-2, keepdims=True)
+    T = np.zeros(x.shape[:-2] + (3, 3))
+    T[..., 0, 0], T[..., 1, 1], T[..., 2, 2] = s[..., 0, 0], s[..., 0, 1], 1.0
+    T[..., 0, 2] = -mean[..., 0, 0] * s[..., 0, 0]
+    T[..., 1, 2] = -mean[..., 0, 1] * s[..., 0, 1]
+    return d * s, T
+
+
+def _output64(f, T1, T2, solver):
+    """The unit-norm solver output for the null vector ``f [9]``, in
+    float64: rank 2 (F only) and denormalised."""
+    N = f.reshape(3, 3)
+    if solver == "f":
+        U, S, Vt = np.linalg.svd(N)
+        return _unit((T2.T @ (U * [S[0], S[1], 0.0]) @ Vt) @ T1)
+    return _unit((np.linalg.inv(T2) @ N) @ T1)
+
+
+def _unit(a):
+    return a / np.linalg.norm(a)
+
+
+def _derived_tol(x1, x2, w, solver):
+    """Per-set bound on the max-abs gap between the two packages' unit-norm
+    outputs (see test_solvers_match_jax_up_to_scale), with the
+    eigen-decomposition, the Jacobian and the normalisation taken in
+    float64 from the same f32 points."""
+    x1n, T1 = _normalize64(x1, w)
+    x2n, T2 = _normalize64(x2, w)
     u, v, up, vp = x1n[..., 0], x1n[..., 1], x2n[..., 0], x2n[..., 1]
     z, o = np.zeros_like(u), np.ones_like(u)
     if solver == "h":
         A = np.concatenate([np.stack([z, z, z, -u, -v, -o, vp * u, vp * v, vp], -1),
                             np.stack([u, v, o, z, z, z, -up * u, -up * v, -up], -1)], -2)
+        rows_w = None if w is None else np.concatenate([w, w], -1)
     else:
         A = np.stack([up * u, up * v, up, vp * u, vp * v, vp, u, v, o], -1)
-    lam = np.linalg.eigvalsh(np.swapaxes(A, -1, -2) @ A)
-    return lam[:, -1] / (lam[:, 1] - lam[:, 0])
+        rows_w = w
+    if rows_w is not None:
+        A = A * rows_w[..., None]
+    n_rows = A.shape[-2]
+    lam, V = np.linalg.eigh(np.swapaxes(A, -1, -2) @ A)
+    c = n_rows / (1 - n_rows * _U) + 2 * 5 + 9  # γ_N/u (step 1) + 2·5 (2) + 9 (3)
+    h = 1e-7  # central-difference step for J
+    tol = np.empty(lam.shape[0])
+    for b in range(lam.shape[0]):
+        f = V[b, :, 0]
+        base = _output64(f, T1[b], T2[b], solver)
+        s = 0.0
+        for k in range(1, 9):
+            plus, minus = (_output64(f + sg * h * V[b, :, k], T1[b], T2[b], solver)
+                           for sg in (1.0, -1.0))
+            plus, minus = (a * np.sign((a * base).sum()) for a in (plus, minus))
+            s += np.abs(plus - minus).max() / (2 * h) / (lam[b, k] - lam[b, 0])
+        tol[b] = 2 * c * _U * lam[b].sum() * s
+    return 1e-4 + tol
 
 
 @pytest.mark.parametrize("solver", ["h", "f"])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_solvers_match_jax_up_to_scale(rng, solver, weighted):
     """Batched 8-point sets and a weighted refit over all points, compared
-    up to scale and sign. Both packages take the least eigenvector of AᵀA
-    formed in f32, rounded in another order, so each set may move by
-    ~eps·λ1/gap: it is held to 1e-4 + 32·eps·λ1/gap, which is ~1e-4
-    relative on well-conditioned sets (the refit over 200 points and most
-    homography sets). Minimal fundamental sets reach λ1/gap ~1e8, where
-    that bound says nothing, so the median over the 64 sets is held too:
-    ~1e-5 for H; for F ~3e-4 (at most 6.4e-4 over 20 seeds), held to 2e-3,
-    while a solve that skips rank 2 gives ~1e-2 and a wrong eigenvector or
+    up to scale and sign against a bound derived for any BLAS/LAPACK build
+    (``_derived_tol``). Each package takes the least eigenvector f of
+    M = AᵀA formed in f32 (u = 2⁻²⁴; A has N rows):
+
+    1. forming M errs by |ΔM| <= γ_N |A|ᵀ|A| entrywise in any order of
+       summation (γ_N = Nu/(1 - Nu)), so ||ΔM||₂ <= γ_N tr(M);
+    2. each normalised coordinate is T̂x to 2u (one rounding in x - mean,
+       one in the scaling; the computed T̂ is the one that denormalises),
+       and each entry of A rounds once more: ≤ 5u relative, so
+       ||ΔM||₂ <= 2·5u tr(M);
+    3. a backward-stable symmetric eigensolver returns an exact
+       eigenvector of M + E, ||E||₂ <= p(9) u ||M||₂, p(9) = 9: <= 9u tr(M);
+    4. to first order f moves by δf = Σₖ vₖ vₖᵀ ΔM f / (λ₁ - λₖ) (k = 2..9),
+       and the rank-2 step and denormalisation move the unit-norm output
+       by J δf, J their Jacobian, so |J δf|∞ <= ||ΔM||₂ S with
+       S = Σₖ |J vₖ|∞ / (λₖ - λ₁);
+    5. the two packages err independently: each set is held to
+       1e-4 + 2 (γ_N/u + 19) u tr(M) S, where 1e-4 covers the f32 rounding
+       of the rank-2 SVD and the denormalisation themselves.
+
+    The observed gap is at most 0.15 of that bound's second term (20
+    seeds under the default and the three MKL_CBWR code paths, which
+    differ from one another in both the batched AᵀA product and ``eigh``).
+    Minimal fundamental sets reach λ₁/gap ~1e8, where the bound says
+    nothing, so the median over the 64 minimal sets is held too: it is at
+    most 1.1e-5 for H and 6.7e-4 for F over those 20 seeds and four code
+    paths, and is held to about 3x that (3e-5 and 2e-3), while a solve
+    that skips rank 2 gives ~1e-2 and a wrong eigenvector or
     denormalisation ~1e-1."""
     pts = _scene(rng, 200, planar=solver == "h")
     x1 = _project(pts, np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
@@ -274,18 +345,17 @@ def test_solvers_match_jax_up_to_scale(rng, solver, weighted):
         w = (rng.random((1, 200)) < 0.7).astype(np.float32)
         got = port(_t(s1), _t(s2), _t(w)).numpy()
         want = np.asarray(ref(jnp.asarray(s1), jnp.asarray(s2), jnp.asarray(w)))
-        tol = np.full(1, 1e-4)
     else:
         idx = np.stack([rng.choice(200, 8, replace=False) for _ in range(64)])
-        s1, s2 = x1[idx], x2[idx]
+        s1, s2, w = x1[idx], x2[idx], None
         got = port(_t(s1), _t(s2)).numpy()
         want = np.asarray(ref(jnp.asarray(s1), jnp.asarray(s2)))
-        tol = 1e-4 + 32 * np.finfo(np.float32).eps * _gap_ratio(s1, s2, solver)
+    tol = _derived_tol(s1, s2, w, solver)
     a, b = _up_to_scale(got, want)
     err = np.abs(a - b).max(axis=(-2, -1))
     assert (err <= tol).all(), (err / tol).max()
-    if solver == "h" or not weighted:  # the F refit is held to 1e-4 above
-        assert np.median(err) < (1e-5 if solver == "h" else 2e-3), np.median(err)
+    if not weighted:  # a refit is one well-conditioned set, held above
+        assert np.median(err) < (3e-5 if solver == "h" else 2e-3), np.median(err)
 
 
 def _candidates_match(R, t, jR, jt, atol):
@@ -315,6 +385,34 @@ def test_decompositions_match_jax_as_sets(rng):
     _candidates_match(gR.numpy(), gt.numpy(), jR, jt, 1e-4)
 
 
+def _triangulation_tol(P1, P2, x1, x2):
+    """Per-point bound on the distance between the two packages' points,
+    derived as for the solvers (test_solvers_match_jax_up_to_scale), in
+    float64 from the same f32 inputs. Each package forms the 4x4 DLT rows
+    x·P[2] - P[c] (two roundings: |δA| <= γ₂ Ā, Ā = |x||P[2]| + |P[c]|),
+    M = AᵀA over 4 rows (γ₄ tr M) and its least eigenvector X (4u tr M),
+    so ||ΔM||₂ <= 2 γ₂ ||A||_F ||Ā||_F + (γ₄ + 4u) tr M; the point
+    p = X[:3] / X[3] moves to first order by at most
+    ||ΔM||₂ Σₖ ||J vₖ||₂ / (λₖ - λ₁), J vₖ = (vₖ[:3] - p vₖ[3]) / X[3].
+    Two packages, and 4u ||p|| each for the division."""
+    rows, bars = [], []
+    for P, x in ((P1.astype(np.float64), x1.astype(np.float64)),
+                 (P2.astype(np.float64), x2.astype(np.float64))):
+        for c in (0, 1):
+            rows.append(x[:, c:c + 1] * P[2] - P[c])
+            bars.append(np.abs(x[:, c:c + 1]) * np.abs(P[2]) + np.abs(P[c]))
+    A, A_bar = np.stack(rows, 1), np.stack(bars, 1)  # [N, 4, 4]
+    lam, V = np.linalg.eigh(np.swapaxes(A, -1, -2) @ A)
+    w = V[:, 3:4, 0]
+    p = V[:, :3, 0] / w
+    g2, g4 = 2 * _U / (1 - 2 * _U), 4 * _U / (1 - 4 * _U)
+    dM = (2 * g2 * np.linalg.norm(A, axis=(-2, -1)) * np.linalg.norm(A_bar, axis=(-2, -1))
+          + (g4 + 4 * _U) * lam.sum(-1))
+    S = sum(np.linalg.norm((V[:, :3, k] - p * V[:, 3:4, k]) / w, axis=-1)
+            / (lam[:, k] - lam[:, 0]) for k in range(1, 4))
+    return 2 * (dM * S + 4 * _U * np.linalg.norm(p, axis=-1))
+
+
 def test_triangulate_matches_jax(rng):
     pts = _scene(rng, 64)
     R, t = _rot_y(3.0), np.array([-0.4, 0.0, 0.05], np.float32)
@@ -326,8 +424,11 @@ def test_triangulate_matches_jax(rng):
     ref = np.asarray(jx_triangulate(jnp.asarray(P1), jnp.asarray(P2),
                                     jnp.asarray(x1[None]), jnp.asarray(x2[None])))[0]
     got = triangulate_dlt(_t(P1), _t(P2), _t(x1[None]), _t(x2[None])).numpy()[0]
-    # the null vector of a 4x4 in f32, dehomogenised: ~1e-5 relative
-    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=0)
+    # each point to its derived bound, 2e-4 to 7e-4 of the point's norm
+    # here (the observed gap is at most 0.07 of it over 20 seeds)
+    dist = np.linalg.norm(got - ref, axis=-1)
+    tol = _triangulation_tol(P1[0], P2[0], x1, x2)
+    assert (dist <= tol).all(), (dist / tol).max()
     np.testing.assert_allclose(got, pts, atol=5e-2)
 
 
@@ -379,35 +480,51 @@ def _jax_uniforms(key, iters):
             np.asarray(jax.random.uniform(kf, (iters, 8))))
 
 
-def _compare_two_view(got, ref):
+def _compare_two_view(got, ref, f_determined=True, rh_threshold=None):
     """The RANSAC winner's refit on its inliers decides everything, and its
     inlier set can differ from JAX's by one borderline match (the f32 null
     vectors of the two packages differ, test_solvers_match_jax_up_to_scale):
 
     - success and the model choice are identical;
-    - the inlier and vetted counts are identical on a scene that
-      initializes, and within one on one that does not;
-    - each score within 12: one match adds at most 2 x 5.991;
-    - the parallax statistic (the 51st-largest angle) within 0.05 degrees;
+    - where the points do not fix F (``f_determined`` False: coplanar
+      points, or no translation, leave the 8-point system a null space of
+      dimension three or more, up to noise), which F each hypothesis takes
+      is up to the eigensolver. There the F score, and the counts and
+      parallax of a pose taken from F, are held only to what the data
+      determine: the model choice, and the side of ``rh_threshold`` on
+      which SH / (SH + SF) falls;
+    - otherwise the inlier and vetted counts are identical on a scene that
+      initializes, and within one on one that does not; the parallax
+      statistic (the 51st-largest angle) within 0.05 degrees; each score
+      within 12: one match adds at most 2 x 5.991;
     - where the pair initializes, R21 to 1e-3 (a refit on a set that
       differs by one match among ~300 moves it by ~3e-4) and the direction
-      of t21 to 0.1 degrees: with 75 matches at 1.4 degrees of parallax
-      (the rendered pair) the data fix it only to ~7 degrees, both packages
-      land there, and their f32 refits part by 0.06 degrees;
+      of t21 to 1 degree. The winner may be a minimal 8-point hypothesis
+      (it is on ``_general``), whose f32 null vector no bound independent
+      of the BLAS/LAPACK build holds (test_solvers_match_jax_up_to_scale):
+      there the two packages' t21 part by 0.02 degrees on the default MKL
+      code path and by 0.25 under MKL_CBWR (and by 0.06 on the rendered
+      pair, whose data fix t21 only to ~7 degrees). 1 degree is 4x the
+      largest parting seen and far below the 180 degrees between the sign
+      candidates; test_twoview.py holds JAX's t21 to 5 degrees of the truth;
     - the vetted-point mask in all but two matches, and the points where
       both vetted them to 1e-2 relative (distant points amplify the pose)."""
     for f in ("success", "used_homography"):
         assert bool(getattr(got, f)) == bool(getattr(ref, f)), f
-    slack = 0 if bool(ref.success) else 1
-    for f in ("n_inliers", "n_good"):
-        assert abs(int(getattr(got, f)) - int(getattr(ref, f))) <= slack, f
-    for f in ("score_h", "score_f"):
+    if not f_determined:
+        rh = [float(r.score_h) / (float(r.score_h) + float(r.score_f)) for r in (got, ref)]
+        assert (rh[0] > rh_threshold) == (rh[1] > rh_threshold), rh
+    if f_determined or bool(ref.used_homography):
+        slack = 0 if bool(ref.success) else 1
+        for f in ("n_inliers", "n_good"):
+            assert abs(int(getattr(got, f)) - int(getattr(ref, f))) <= slack, f
+        assert abs(float(got.parallax_deg) - float(ref.parallax_deg)) <= 0.05
+    for f in ("score_h", "score_f") if f_determined else ("score_h",):
         assert abs(float(getattr(got, f)) - float(getattr(ref, f))) <= 12.0, f
-    assert abs(float(got.parallax_deg) - float(ref.parallax_deg)) <= 0.05
     if bool(ref.success):
         np.testing.assert_allclose(got.R21.numpy(), np.asarray(ref.R21), atol=1e-3, rtol=0)
         cos_t = float(got.t21.numpy() @ np.asarray(ref.t21))  # both unit norm
-        assert np.degrees(np.arccos(np.clip(cos_t, -1.0, 1.0))) <= 0.1
+        assert np.degrees(np.arccos(np.clip(cos_t, -1.0, 1.0))) <= 1.0
     gm, rm = got.tri_mask.numpy(), np.asarray(ref.tri_mask)
     assert (gm != rm).sum() <= 2
     both = gm & rm
@@ -427,7 +544,8 @@ def test_initialize_two_view_matches_jax(rng, scene):
                   key, _jx(cfg))
     u_h, u_f = _jax_uniforms(key, cfg.ransac_iterations)
     got = initialize_two_view(_t(x1), _t(x2), _t(valid), _t(K), _t(u_h), _t(u_f), cfg)
-    _compare_two_view(got, ref)
+    _compare_two_view(got, ref, f_determined=scene not in (_planar, _pure_rotation, _too_few),
+                      rh_threshold=cfg.rh_threshold)
     if scene in (_general, _planar, _outliers):
         assert bool(got.success)
     if scene in (_pure_rotation, _too_few):

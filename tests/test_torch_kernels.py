@@ -29,7 +29,7 @@ from orb_slam_tracking_tpu.ops.pallas_kernels import (
 )
 from orb_slam_tracking_tpu.ops.pyramid import reflect_pad as jx_reflect_pad
 from orb_slam_tracking_tpu_torch import kernels
-from orb_slam_tracking_tpu_torch.ops import brief, fast, hamming, orientation, pattern
+from orb_slam_tracking_tpu_torch.ops import brief, describe, fast, hamming, orientation, pattern
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -183,13 +183,18 @@ def test_launch_counters_stay_zero_on_cpu(rng):
     hamming.hamming_matrix(d, d)
     yx = torch.full((3,), 30, dtype=torch.int32)
     orientation.moments_at(torch.from_numpy(img), yx, yx, pattern.umax_table())
+    xy = torch.full((3, 2), 11.0)
+    describe.orient_describe(torch.from_numpy(img), torch.from_numpy(img), yx, yx, xy,
+                             torch.zeros((2, 512)), pattern.umax_table())
     assert fast.fast_score.launches == 0
     assert brief.brief_words.launches == 0
     assert hamming.hamming_matrix.launches == 0
     assert orientation.moments_at.launches == 0
+    assert describe.orient_describe.launches == 0
 
 
-@pytest.mark.parametrize("call", ["fast", "brief", "hamming", "hamming_gated", "moments"])
+@pytest.mark.parametrize("call", ["fast", "brief", "hamming", "hamming_gated", "moments",
+                                  "orient_describe"])
 def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
     """Only a CPU tensor may take the plain version; any other device goes
     to the kernel's checks, which refuse it."""
@@ -204,6 +209,11 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
         elif call == "moments":
             yx = torch.empty((3,), dtype=torch.int32, device="meta")
             orientation.moments_at(img, yx, yx, pattern.umax_table())
+        elif call == "orient_describe":
+            yx = torch.empty((3,), dtype=torch.int32, device="meta")
+            xy = torch.empty((3, 2), device="meta")
+            pat = torch.empty((2, 512), device="meta")
+            describe.orient_describe(img, img, yx, yx, xy, pat, pattern.umax_table())
         elif call == "hamming_gated":
             f = torch.empty((3,), device="meta")
             b = torch.empty((3,), dtype=torch.bool, device="meta")
@@ -219,10 +229,11 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
     assert d.parent == kernels.BUILD_ROOT
     assert kernels.BUILD_ROOT.parent.name == "build"
     assert {p.name for p in kernels._sources()} >= {
-        "fast_score.cu", "brief_words.cu", "hamming_matrix.cu", "moments_at.cu"}
+        "fast_score.cu", "brief_words.cu", "hamming_matrix.cu", "moments_at.cu",
+        "orient_describe.cu", "disc_moments.cuh"}
     assert set(kernels._SIGNATURES) == {
         "osltt_fast_score", "osltt_brief_words", "osltt_hamming_matrix",
-        "osltt_hamming_gated_min", "osltt_moments_at"}
+        "osltt_hamming_gated_min", "osltt_moments_at", "osltt_orient_describe"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
