@@ -33,7 +33,21 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
    rendered 640x480 pair, 2000 keypoints, 200 and 2000 RANSAC hypotheses):
    launch counts per pair, success and pose against
    ground truth, ms per pair, the host syncs it makes, and the same pair
-   through the plain versions on the card.
+   through the plain versions on the card;
+8. the sequence tracker at the ``tracker_entry()`` operating point (the JAX
+   package's tracking demo: 40 rendered 640x480 frames, 1000 features, a
+   2048-point / 16-keyframe map, BA window 8): per frame the state,
+   keypoints, inliers, keyframe events and kernel launches; the gates of
+   ``tests/test_tracking.py`` (initialization, >= 18 WORKING frames, a
+   rotation error spread < 1.5 deg, Sim(3)-aligned ATE < 0.02, >= 4
+   keyframes, > 100 map points); host ms per WORKING frame, insert and
+   local BA, their device ms from fixed map states, and the host syncs of
+   a frame and of an insert; one keyframe insert from a fixed map state
+   through the kernels and through the plain versions, twice each: the
+   events identical, every field within twice the larger run-to-run spread
+   (plus 1e-6 of a float field's magnitude); and the relocalization recipe (LOST
+   after 3 blank frames, recovered by frame 22, rotation error < 4 deg at
+   frame 25).
 
 The line before the last is ``nvidia-smi``'s name and power limit, the one
 before it a JSON object of per-kernel results (launches counted on each
@@ -110,15 +124,16 @@ def device_ms(fn, runs: int = RUNS) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us == 0:
-        raise RuntimeError("the profiler trace holds no device events")
-    return us / 1e3 / runs
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / runs
+    raise RuntimeError("three profiler traces held no device events")
 
 
 def import_port() -> None:
@@ -135,17 +150,18 @@ def plain_kernels():
     from orb_slam_tracking_tpu_torch.ops import (
         atlas, describe, fast, hamming, matcher, proj_matcher)
 
-    saved = (atlas.fast_score, atlas.orient_describe,
-             proj_matcher.hamming_gated_min, matcher.hamming_gated_min)
+    saved = (atlas.fast_score, atlas.orient_describe, proj_matcher.hamming_gated_min,
+             matcher.hamming_gated_min, matcher.hamming_matrix)
     atlas.fast_score = fast.fast_score_reference
     atlas.orient_describe = describe.orient_describe_reference
     proj_matcher.hamming_gated_min = hamming.hamming_gated_min_reference
     matcher.hamming_gated_min = hamming.hamming_gated_min_reference
+    matcher.hamming_matrix = hamming.hamming_matrix_reference
     try:
         yield
     finally:
-        (atlas.fast_score, atlas.orient_describe,
-         proj_matcher.hamming_gated_min, matcher.hamming_gated_min) = saved
+        (atlas.fast_score, atlas.orient_describe, proj_matcher.hamming_gated_min,
+         matcher.hamming_gated_min, matcher.hamming_matrix) = saved
 
 
 @contextlib.contextmanager
@@ -328,6 +344,11 @@ def phase_kernels(device):
     init_desc = torch.randint(-2**31, 2**31, (init_cfg.max_keypoints, 8), generator=g,
                               device=device, dtype=torch.int64).to(torch.int32)
     b3["init_shape"] = b3_at(init_desc, init_cfg.max_keypoints)
+    # the tracker's keyframe insert: its <= 3 covisible neighbours' snapshot
+    # rows stacked against the current keyframe's snapshot
+    tracker_desc = torch.randint(-2**31, 2**31, (TRACKER_MATRIX[0], 8), generator=g,
+                                 device=device, dtype=torch.int64).to(torch.int32)
+    b3["tracker_shape"] = b3_at(tracker_desc, TRACKER_MATRIX[1])
     ragged = init_desc[:999], init_desc[1000:1777]  # odd N, rows and columns past a tile
     if not torch.equal(hamming.hamming_matrix(*ragged), hamming.hamming_matrix_reference(*ragged)):
         raise AssertionError("hamming_matrix differs from plain at [999, 777]")
@@ -358,6 +379,14 @@ def phase_kernels(device):
     with recorded(matcher, "hamming_gated_min", calls):
         fwd(*fargs)
     b3f["init_shape"] = fused(calls[0], "the init pair's match")
+    # match_descriptors (reference-keyframe tracking, relocalization): every
+    # gate open, a keyframe snapshot's 2048 rows against a frame's 1024
+    calls.clear()
+    with recorded(matcher, "hamming_gated_min", calls):
+        matcher.match_descriptors(init_desc, torch.rand(2048, generator=g, device=device) < 0.3,
+                                  map_desc[:1024].contiguous(),
+                                  torch.rand(1024, generator=g, device=device) < 0.95)
+    b3f["open_gates_shape"] = fused(calls[0], "match_descriptors' open gates")
 
     # ties: descriptors drawn from 8, integer coordinates (pairs on the
     # window's edge), radii 0-3 (rows with nothing eligible), a ragged N
@@ -500,6 +529,16 @@ PER_FRAME = {"fast_score": 1, "brief_words": 0, "moments_at": 0, "hamming_matrix
              "hamming_gated_min": 2, "orient_describe": 1}
 PER_PAIR = {"fast_score": 2, "brief_words": 0, "moments_at": 0, "hamming_matrix": 0,
             "hamming_gated_min": 1, "orient_describe": 2}
+# the sequence tracker: at least these per WORKING frame (the fused step;
+# a wide retry, reference-keyframe matching and relocalization add more),
+# and exactly one all-pairs matrix per keyframe insert (its covisible
+# neighbours' rows stacked, TRACKER_MATRIX at three neighbours)
+PER_WORKING_FRAME = {"fast_score": 1, "brief_words": 0, "moments_at": 0, "hamming_matrix": 0,
+                     "hamming_gated_min": 2, "orient_describe": 1}
+PER_INSERT = {"hamming_matrix": 1}
+TRACKER_MATRIX = (3 * 2048, 2048)
+TRACKER_GATES = {"min_working": 18, "rot_spread_deg": 1.5, "ate": 0.02, "min_kf": 4,
+                 "min_points": 100}
 
 
 def reset_counters():
@@ -856,6 +895,187 @@ def phase_init(device):
     return result
 
 
+def _rot_err_deg(R, Rg):
+    return float(np.degrees(np.arccos(np.clip((np.trace(R.T @ Rg) - 1) / 2, -1, 1))))
+
+
+def _insert_outputs(tracker, out):
+    """An insert's result: its events, and the map's fields and pose."""
+    m = tracker.map
+    return out, {**{f: getattr(m, f) for f in m._fields},
+                 "R": torch.tensor(tracker.R), "t": torch.tensor(tracker.t)}
+
+
+def _differ(a, b):
+    """Per field: the max abs difference of float fields, the number of
+    differing elements of integer and bool fields."""
+    out = {}
+    for f, x in a[1].items():
+        y = b[1][f]
+        if x.dtype.is_floating_point:
+            out[f] = float((x.double() - y.double()).abs().max())
+        else:
+            out[f] = int((x != y).sum())
+    return out
+
+
+def phase_tracker(device):
+    """The sequence tracker on the tracking demo's 40 frames and on the
+    relocalization recipe; see the module docstring, phase 8."""
+    from orb_slam_tracking_tpu_torch.entry import tracker_entry
+    from orb_slam_tracking_tpu_torch.slam.tracker import TrackState
+    from orb_slam_tracking_tpu_torch.tools import profile_step as ps
+    from orb_slam_tracking_tpu_torch.tools.demo_tracking import frame_line, trajectory_ate
+
+    tracker, frames, poses = tracker_entry(device)
+    host = {k: [] for k in ("working", "insert", "local_ba", "other")}
+    metrics, rot_errs = [], []
+    # fixed map states, taken on the way (the map is replaced, never written
+    # in place, so a snapshot holds a state): before the first WORKING frame
+    # from frame 24 on without an insert, and before the first insert from
+    # frame 24 on (three covisible neighbours), with its arguments
+    fixed = {}
+    reset_counters()
+    with ps.tracker_stages(tracker, host):
+        timed_insert = tracker._insert_keyframe
+
+        def insert(*args):
+            if "insert" not in fixed and fixed["frame"] >= 24:
+                fixed["insert"] = (ps.snapshot(tracker), args)
+            return timed_insert(*args)
+
+        tracker._insert_keyframe = insert
+        for i, frame in enumerate(frames):
+            before = read_counters()
+            fixed["frame"] = i
+            snap = ps.snapshot(tracker)
+            m = tracker.track(frame, i / 30.0)
+            if (i >= 24 and "working" not in fixed and m["state"] == "WORKING"
+                    and "kf" not in m):
+                fixed["working"] = (i, snap)
+            launched = {k: v - before[k] for k, v in read_counters().items()}
+            metrics.append(m)
+            events = ""
+            if "kf" in m:
+                events = (f" {m['kf']}, fused {m['kf_fused']}, culled points "
+                          f"{m['culled_points']} and keyframes {m['culled_kfs']}, BA cost "
+                          f"{m['ba_cost0']:.3f} -> {m['ba_cost']:.3f}, {m['ba_inlier_obs']} "
+                          "inlier obs;")
+            if tracker.state == TrackState.WORKING:
+                rot_errs.append(_rot_err_deg(tracker.R, poses[i][0]))
+            log("tracker", frame_line(i, m) + events + " launches "
+                + ",".join(f"{k}={v}" for k, v in launched.items() if v))
+            if m["state"] == "WORKING":
+                short = {k: v for k, v in PER_WORKING_FRAME.items() if launched[k] < v}
+                if short:
+                    raise AssertionError(f"frame {i}: launches {launched}, at least {short}")
+            if "kf" in m and launched["hamming_matrix"] != PER_INSERT["hamming_matrix"]:
+                raise AssertionError(f"frame {i}: an insert with launches {launched}")
+    counts = read_counters()
+    n_working = sum(m["state_after"] == "WORKING" for m in metrics)
+    n_inserts = sum("kf" in m for m in metrics)
+    ate, n_ate = trajectory_ate(tracker, poses)
+    spread = max(rot_errs) - min(rot_errs) if rot_errs else float("inf")
+    n_points = int(tracker.map.n_points())
+    init_frame = next((i for i, m in enumerate(metrics) if m.get("init") == "success"), None)
+    log("tracker", f"{len(frames)} frames: initialized at frame {init_frame}, {n_working} "
+        f"WORKING, {n_inserts} keyframe inserts; rotation error spread {spread:.4f} deg; ATE "
+        f"(Sim3-aligned, {n_ate} frames) {ate:.5f}; keyframes {tracker.n_kf}, map points "
+        f"{n_points}; launches {counts}")
+    g = TRACKER_GATES
+    if (init_frame is None or n_working < g["min_working"] or spread >= g["rot_spread_deg"]
+            or ate >= g["ate"] or tracker.n_kf < g["min_kf"] or n_points <= g["min_points"]):
+        raise AssertionError(f"the tracker misses the gates {g}")
+    if counts["hamming_matrix"] == 0:
+        raise AssertionError("hamming_matrix was not launched on the tracker path")
+    log("tracker", "host ms (median, each stage ending in a synchronize): WORKING frame "
+        f"{statistics.median(host['working']):.3f} (of {len(host['working'])}), keyframe insert "
+        f"{statistics.median(host['insert']):.3f} (of {len(host['insert'])}), local BA "
+        f"{statistics.median(host['local_ba']):.3f} (of {len(host['local_ba'])}), other frame "
+        f"{statistics.median(host['other']):.3f}")
+
+    if "working" not in fixed or "insert" not in fixed:
+        raise AssertionError("no WORKING frame without an insert, or no insert, from frame 24 on")
+    plain_frame, frame_state = fixed["working"]
+    ins_state, ins_args = fixed["insert"]
+
+    def one_frame():
+        ps.restore(tracker, frame_state)
+        return tracker.track(frames[plain_frame], plain_frame / 30.0)
+
+    ba_state, ba_args = ps.state_before(tracker, "_local_ba", lambda: (
+        ps.restore(tracker, ins_state), tracker._insert_keyframe(*ins_args)))
+
+    def one_insert():
+        ps.restore(tracker, ins_state)
+        return _insert_outputs(tracker, tracker._insert_keyframe(*ins_args))
+
+    def one_ba():
+        ps.restore(tracker, ba_state)
+        return tracker._local_ba(*ba_args)
+
+    frame_syncs = ps.count_syncs(one_frame)
+    insert_syncs = ps.count_syncs(one_insert)
+    log("tracker", f"host syncs: WORKING frame {plain_frame} {sum(frame_syncs.values())}, "
+        f"insert at frame {ins_state['frame_id'] + 1} {sum(insert_syncs.values())} ("
+        + ", ".join(f"{k} x{v}" for k, v in sorted(insert_syncs.items())) + ")")
+    dev = {name: device_ms(fn, runs=10) for name, fn in
+           (("WORKING frame", one_frame), ("keyframe insert", one_insert), ("local BA", one_ba))}
+    log("tracker", "device ms from fixed map states (profiler, 10 runs each): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in dev.items()))
+
+    # the insert through the kernels and through the plain versions, twice each
+    reset_counters()
+    k1, k2 = one_insert(), one_insert()
+    if read_counters()["hamming_matrix"] != 2:
+        raise AssertionError(f"two inserts launched {read_counters()}")
+    with plain_kernels():
+        p1, p2 = one_insert(), one_insert()
+    if read_counters()["hamming_matrix"] != 2:
+        raise AssertionError("the plain inserts launched a kernel")
+    spread_k, spread_p, cross = _differ(k1, k2), _differ(p1, p2), _differ(k1, p1)
+    worst = {}
+    for f, d in cross.items():
+        ref = k1[1][f]
+        allowed = 2 * max(spread_k[f], spread_p[f])
+        if ref.dtype.is_floating_point:
+            allowed += 1e-6 * float(ref.abs().max())
+        worst[f] = (d, allowed)
+        if d > allowed:
+            raise AssertionError(f"insert {f}: kernel vs plain {d}, allowed {allowed} (run-to-run "
+                                 f"{spread_k[f]} / {spread_p[f]})")
+    events = ("kf_obs", "kf_new_points", "kf_fused", "culled_points", "culled_kfs")
+    if any(k1[0][e] != p1[0][e] for e in events):
+        raise AssertionError(f"insert events: kernels {k1[0]}, plain {p1[0]}")
+    n_pts = int(ins_state["map"].n_points())
+    log("tracker", f"one insert from a fixed map state ({k1[0]['kf']}, {n_pts} map points): "
+        "events identical through the kernels and the plain versions; run-to-run spread "
+        "kernels / plain and kernel vs plain, max abs, of the fields that differ: "
+        + ", ".join(f"{f} {spread_k[f]:.3g}/{spread_p[f]:.3g}/{cross[f]:.3g}"
+                    for f in cross if max(spread_k[f], spread_p[f], cross[f]) > 0)
+        + (" (none)" if not any(cross.values()) else ""))
+
+    # relocalization: 14 frames, 3 blank (LOST), then the frames from 17 on
+    tracker, frames, poses = tracker_entry(device, n_frames=26)
+    ps.run_sequence(tracker, frames[:14])
+    if tracker.state != TrackState.WORKING:
+        raise AssertionError("the relocalization recipe did not reach WORKING by frame 14")
+    blank = np.zeros_like(frames[0])
+    recovered = None
+    for i in range(14, 26):
+        m = tracker.track(blank if i < 17 else frames[i], i / 30.0)
+        if i == 16 and tracker.state != TrackState.LOST:
+            raise AssertionError("not LOST after 3 blank frames")
+        if recovered is None and i >= 17 and tracker.state == TrackState.WORKING:
+            recovered = i
+            log("tracker", f"relocalization: {frame_line(i, m)}")
+    rerr = _rot_err_deg(tracker.R, poses[25][0])
+    log("tracker", f"relocalization: LOST after 3 blank frames, recovered at frame {recovered}, "
+        f"rotation error {rerr:.4f} deg at frame 25")
+    if recovered is None or recovered > 22 or rerr >= 4.0:
+        raise AssertionError("relocalization misses its gates (by frame 22, < 4 deg)")
+    return counts
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -870,6 +1090,7 @@ def main() -> int:
     phase_sequence(device)
     phase_kp_moments(device)
     paths["init"] = phase_init(device)
+    paths["tracker"] = phase_tracker(device)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "orb_slam_tracking_tpu"))
     if foreign:
@@ -877,7 +1098,8 @@ def main() -> int:
     for k in results:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-        on_path = PER_FRAME[k["name"]] + PER_PAIR[k["name"]] > 0
+        on_path = (PER_FRAME[k["name"]] + PER_PAIR[k["name"]] + PER_WORKING_FRAME[k["name"]]
+                   + PER_INSERT.get(k["name"], 0)) > 0
         if on_path and k["launches"] == 0:
             raise AssertionError(f"{k['name']} was launched on no path")
     print(json.dumps({"kernels": results}))

@@ -2,9 +2,9 @@
 
 These are the port's own copies of the JAX package's ``CameraConfig``,
 ``OrbConfig``, ``MatcherConfig``, ``InitConfig``, ``TrackerConfig`` and
-``SystemConfig``, cut to the fields the tracking step and the two-view
-initialization read, with the same names, defaults, checks and derived
-shapes. The port imports nothing of the JAX package, so it cannot share
+``SystemConfig``, with the same names, defaults, checks and derived
+shapes; ``TrackerConfig`` is copied whole, the others are cut to the
+fields the port reads. The port imports nothing of the JAX package, so it cannot share
 them; ``tests/test_torch_track.py`` holds the two sets equal. The YAML
 loader and the other fields come with the slices that use them.
 """
@@ -12,7 +12,8 @@ loader and the other fields come with the slices that use them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 __all__ = ["CameraConfig", "InitConfig", "MatcherConfig", "OrbConfig",
            "SystemConfig", "TrackerConfig"]
@@ -133,14 +134,63 @@ class InitConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrackerConfig:
-    """The tracking step's knobs: the stage-1 projection radius (scaled
-    per keypoint octave), the tight re-match radius, and the pose LM's
-    rounds of iterations."""
+    """The tracking loop's knobs, field for field the JAX package's: the
+    motion model and keyframe bounds, the stage-1 projection radius (scaled
+    per keypoint octave) and the tight re-match radius, the pose LM's
+    rounds, the map capacities, local BA, the map lifecycle (covisibility
+    triangulation, fusion, point and keyframe culling) and relocalization.
 
+    The port's ``Tracker`` does not implement BoW (``use_bow``) or loop
+    closing (``use_loop_closing``) yet and raises when either is on; their
+    defaults stay ``True`` so the two classes stay field-equal. Local BA
+    always takes the scatter formulation (``ba_segment_mode`` "auto" or
+    "scatter"); ``lost_recovery_radius_scale`` is read by the JAX
+    package's device mapping loop, which is not ported yet."""
+
+    use_motion_model: bool = True
+    min_frames: int = 0
+    max_frames: int = 18  # 18 * fps / 30 at fps=30 (Settings.hpp:46)
     projection_radius: float = 15.0
     local_map_radius: float = 3.0
+    min_tracked_inliers: int = 10
+    lost_recovery_radius_scale: float = 3.0
     pose_opt_rounds: int = 2
     pose_opt_iters: int = 6
+    huber_delta: float = math.sqrt(5.991)
+    # map capacities (static shapes)
+    max_keyframes: int = 64
+    max_map_points: int = 8192
+    # bag-of-words place recognition (a later slice of the port)
+    use_bow: bool = True
+    bow_branching: int = 8
+    bow_depth: int = 3
+    vocab_path: Optional[str] = "bundled"
+    # local BA
+    ba_window: int = 20
+    ba_iterations: int = 10
+    ba_early_stop_rel: float = 1e-4
+    ba_segment_mode: str = "auto"
+    # map lifecycle (ORB-SLAM LocalMapping semantics)
+    covis_keyframes: int = 3
+    covis_min_shared: int = 15
+    fuse_radius_px: float = 2.0
+    cull_min_obs: int = 3
+    cull_age_kfs: int = 3
+    cull_found_ratio: float = 0.25
+    cull_min_visible: int = 8
+    kf_redundancy_frac: float = 0.9
+    reloc_bow_candidates: int = 5
+    # loop closing (a later slice of the port)
+    use_loop_closing: bool = True
+    loop_min_frame_gap: int = 60
+    loop_consistency_th: int = 3
+    loop_min_inliers: int = 20
+    loop_max_sim3_candidates: int = 5
+    loop_covis_edge_min_shared: int = 30
+    pose_graph_iterations: int = 15
+    loop_fuse_radius_px: float = 8.0
+    loop_sim3_grow_radius_px: float = 7.5
+    loop_global_ba_iterations: int = 8
 
 
 @dataclasses.dataclass(frozen=True)

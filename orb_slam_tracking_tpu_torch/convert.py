@@ -2,24 +2,26 @@
 
 There are no model weights; the state a tracking step consumes is the map
 (points, descriptors, validity, viewing normal, scale envelope), the pose
-and the intrinsics. The pose and ``K`` are plain float32 tensors; these
-helpers turn the JAX package's numpy map into the port's tensors (uint32
-descriptors become int32 with the same bits) and the port's keypoints
-back and forth between numpy and tensors, so both packages are fed and
-read identically.
+and the intrinsics, and the tracker's state is the full ``SlamMap``. The
+pose and ``K`` are plain float32 tensors; these helpers turn the JAX
+package's numpy maps into the port's tensors and back (uint32 descriptors
+become int32 with the same bits) and the port's keypoints back and forth
+between numpy and tensors, so both packages are fed and read identically.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .slam.map import SlamMap
 from .types import Keypoints
 
 __all__ = ["MapTensors", "desc_to_int32", "desc_to_uint32", "map_from_numpy",
-           "keypoints_from_numpy", "keypoints_to_numpy"]
+           "keypoints_from_numpy", "keypoints_to_numpy", "slam_map_from_numpy",
+           "slam_map_to_numpy"]
 
 
 class MapTensors(NamedTuple):
@@ -84,3 +86,26 @@ def keypoints_from_numpy(kps, *, device: torch.device | str) -> Keypoints:
     out = {f: np.asarray(get(f)) for f in Keypoints._fields}
     out["desc"] = desc_to_int32(out["desc"])
     return Keypoints(**{f: torch.tensor(a, device=device) for f, a in out.items()})
+
+
+_DESC_FIELDS = ("desc", "kf_kp_desc")
+
+
+def slam_map_to_numpy(m: SlamMap) -> Dict[str, np.ndarray]:
+    """The port's ``SlamMap`` as the JAX package's numpy fields (descriptor
+    words as uint32)."""
+    out = {f: getattr(m, f).detach().cpu().numpy() for f in SlamMap._fields}
+    for f in _DESC_FIELDS:
+        out[f] = desc_to_uint32(out[f])
+    return out
+
+
+def slam_map_from_numpy(fields: Mapping[str, np.ndarray], *,
+                        device: torch.device | str) -> SlamMap:
+    """The JAX package's ``SlamMap`` fields (any mapping of numpy arrays,
+    uint32 descriptors) -> the port's tensors."""
+    out = {}
+    for f in SlamMap._fields:
+        a = np.asarray(fields[f])
+        out[f] = torch.tensor(desc_to_int32(a) if f in _DESC_FIELDS else a, device=device)
+    return SlamMap(**out)

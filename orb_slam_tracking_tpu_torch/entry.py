@@ -9,11 +9,16 @@ the same order, so both entries see the same arrays.
 a rendered 640x480 pair of the corner-field scene on the strafe
 trajectory, extracted at ``init_orb`` of 1000 features (2000 keypoints,
 capacity 2048), with 200 RANSAC hypotheses per model.
+
+``tracker_entry`` is the sequence tracker at the JAX package's tracking
+demo point (``examples/demo_tracking.py``): 640x480, 1000 features,
+a 2048-point / 16-keyframe map with an 8-keyframe BA window, 40 rendered
+frames of the 900-point corner field on the strafe trajectory.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -23,10 +28,12 @@ from .config import (CameraConfig, InitConfig, MatcherConfig, OrbConfig,
 from .convert import map_from_numpy
 from .device import DEFAULT_DEVICE, resolve_device
 from .slam.fused_step import TrackingStep
+from .slam.tracker import Tracker
 from .slam.two_view_init import TwoViewInitializer
 from .utils.synthetic import CornerField, make_trajectory, render_frame
 
-__all__ = ["entry", "init_entry", "InitEntry", "ENTRY_CAMERA", "INIT_PAIR"]
+__all__ = ["entry", "init_entry", "tracker_entry", "InitEntry", "TrackerEntry",
+           "ENTRY_CAMERA", "INIT_PAIR", "TRACKER_CONFIG"]
 
 ENTRY_CAMERA = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0,
                             width=640, height=480)
@@ -101,3 +108,32 @@ def init_entry(device: torch.device | str = DEFAULT_DEVICE,
         return init(img1, img2, torch.Generator(device=device).manual_seed(0))
 
     return InitEntry(forward, imgs, R21, t21)
+
+
+# the tracking demo's configuration, without the parts the port has not
+# ported yet (BoW and loop closing)
+TRACKER_CONFIG = SystemConfig(
+    camera=ENTRY_CAMERA, orb=OrbConfig(n_features=1000),
+    tracker=TrackerConfig(max_map_points=2048, max_keyframes=16, ba_window=8,
+                          use_bow=False, use_loop_closing=False))
+TRACKER_FIELD_POINTS = 900
+TRACKER_FRAMES = 40
+
+
+class TrackerEntry(NamedTuple):
+    tracker: Tracker
+    frames: List[np.ndarray]                     # [480, 640] float32 images
+    poses: List[Tuple[np.ndarray, np.ndarray]]   # ground-truth world-to-camera (R, t)
+
+
+def tracker_entry(device: torch.device | str = DEFAULT_DEVICE,
+                  n_frames: int = TRACKER_FRAMES) -> TrackerEntry:
+    """A fresh ``Tracker`` at the tracking demo's point, the rendered frames
+    (``CornerField(default_rng(0), n=900)``, ``make_trajectory(n_frames,
+    "strafe")``) and their ground-truth poses. Feed frame i with timestamp
+    i / 30."""
+    device = resolve_device(device)
+    field = CornerField(np.random.default_rng(0), n=TRACKER_FIELD_POINTS)
+    poses = make_trajectory(n_frames, "strafe")
+    frames = [render_frame(field, TRACKER_CONFIG.camera, R, t) for R, t in poses]
+    return TrackerEntry(Tracker(TRACKER_CONFIG, device=device), frames, poses)

@@ -1,7 +1,8 @@
 """Batched fundamental-matrix estimation and essential decomposition
 (counterpart of ``geometry/fundamental.py``): the normalised 8-point
 algorithm through the least eigenvector of AᵀA, rank 2 enforced with a
-batched 3x3 SVD, and ``cv::decomposeEssentialMat``'s four candidates."""
+batched 3x3 SVD, ``cv::decomposeEssentialMat``'s four candidates, and F
+from two known poses (the triangulation matcher's epipolar gate)."""
 
 from __future__ import annotations
 
@@ -10,8 +11,9 @@ from typing import Optional, Tuple
 import torch
 
 from .homography import normalize_points
+from .se3 import hat
 
-__all__ = ["solve_f_8point", "decompose_essential"]
+__all__ = ["solve_f_8point", "decompose_essential", "fundamental_from_poses"]
 
 _EPS = 1e-12
 
@@ -54,3 +56,14 @@ def decompose_essential(F: torch.Tensor, K: torch.Tensor
     t = U[:, 2]
     t = t / (torch.linalg.vector_norm(t) + _EPS)
     return torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
+
+
+def fundamental_from_poses(R1: torch.Tensor, t1: torch.Tensor, R2: torch.Tensor,
+                           t2: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """F21 from two world-to-camera poses: maps view-1 pixels to view-2
+    epipolar lines, ``F21 = K^-T [t21]_x R21 K^-1`` with ``T21 = T2 o T1^-1``.
+    Batched over leading axes of the poses; ``K`` is [3, 3]."""
+    R21 = R2 @ R1.transpose(-1, -2)
+    t21 = t2 - (R21 @ t1[..., None])[..., 0]
+    Kinv = torch.linalg.inv_ex(K).inverse
+    return Kinv.T @ hat(t21) @ R21 @ Kinv

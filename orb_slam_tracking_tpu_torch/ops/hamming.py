@@ -11,8 +11,8 @@ the TPU kernel ``hamming_matrix_pallas``):
 
 On CPU tensors each runs its plain version (``hamming_matrix_reference``,
 ``hamming_gated_min_reference``). PyTorch has no popcount and its int32
-``>>`` is arithmetic, so the plain distance masks each shifted bit with
-``& 1``. ``.launches`` on each wrapper counts its kernel's launches.
+``>>`` is arithmetic, so the plain distance sums the bits of each word by
+masked shifts (SWAR). ``.launches`` on each wrapper counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -24,18 +24,29 @@ import torch
 from .. import kernels
 
 __all__ = ["BIG", "hamming_matrix", "hamming_matrix_reference", "hamming_gated_min",
-           "hamming_gated_min_reference"]
+           "hamming_gated_min_reference", "popcount"]
 
 BIG = 1 << 20  # the distance of a row with nothing eligible
 
 
 def hamming_matrix_reference(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
-    """[P, 8] x [N, 8] int32 -> [P, N] int32 distances in [0, 256]."""
-    x = d1[:, None, :] ^ d2[None, :, :]
-    count = torch.zeros_like(x)
-    for k in range(32):
-        count += (x >> k) & 1
-    return count.sum(dim=-1, dtype=torch.int32)
+    """[P, 8] x [N, 8] int32 -> [P, N] int32 distances in [0, 256], taken
+    over blocks of 512 rows to bound the [rows, N, 8] temporaries."""
+    out = torch.empty((d1.shape[0], d2.shape[0]), dtype=torch.int32, device=d1.device)
+    for i in range(0, d1.shape[0], 512):
+        out[i:i + 512] = popcount(d1[i:i + 512, None, :] ^ d2[None, :, :]).sum(
+            dim=-1, dtype=torch.int32)
+    return out
+
+
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word, by the SWAR bit sums; every shift is
+    masked, since int32 ``>>`` is arithmetic."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    return (x + (x >> 16)) & 0x3F
 
 
 def _check_descriptors(name: str, d1: torch.Tensor, d2: torch.Tensor) -> None:

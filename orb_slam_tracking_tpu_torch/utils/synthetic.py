@@ -1,10 +1,11 @@
 """Rendered test scenes with exact ground-truth poses (numpy only).
 
 Counterpart of ``orb_slam_tracking_tpu/utils/synthetic.py``, cut to what
-the tracking checks use: the ``"blobs"`` corner field, the renderer and
-the ``"strafe"`` trajectory. The random draws, their order and the
-arithmetic are the JAX package's, so the same seed renders the same
-frames; ``tests/test_torch_extract.py`` holds them equal.
+the tracking checks use: the ``"blobs"`` corner field, the renderer, the
+``"strafe"`` trajectory and the bundle-adjustment problem. The random
+draws, their order and the arithmetic are the JAX package's, so the same
+seed renders the same frames; ``tests/test_torch_extract.py`` and
+``tests/test_torch_map_ba.py`` hold them equal.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 
 from ..config import CameraConfig
 
-__all__ = ["CornerField", "render_frame", "make_trajectory"]
+__all__ = ["CornerField", "render_frame", "make_trajectory", "synthetic_ba_problem"]
 
 
 class CornerField:
@@ -97,3 +98,48 @@ def make_trajectory(n_frames: int, mode: str = "strafe"
         t = -R @ centre
         poses.append((R.astype(np.float32), t.astype(np.float32)))
     return poses
+
+
+def synthetic_ba_problem(seed: int, nK: int = 8, nP: int = 512,
+                         fx: float = 450.0, fy: float = 450.0,
+                         cx: float = 320.0, cy: float = 240.0):
+    """Deterministic bundle-adjustment problem: a yawing strafe past a point
+    cloud with noisy observations and a perturbed initial state.
+
+    Returns (pts0, kf_R0, kf_t0, obs_kf, obs_pt, obs_uv, K) as numpy; the
+    pose perturbation goes through the port's f32 ``se3_exp`` on the CPU.
+    """
+    import torch
+
+    from ..geometry import se3
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+    pts_gt = np.stack(
+        [rng.uniform(-3, 3, nP), rng.uniform(-2, 2, nP), rng.uniform(3, 9, nP)], -1
+    ).astype(np.float32)
+    kf_R, kf_t = [], []
+    for k in range(nK):
+        yaw = np.radians(1.2 * k)
+        Rwc = np.array(
+            [[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+             [-np.sin(yaw), 0, np.cos(yaw)]], np.float32,
+        )
+        c = np.array([-0.25 * k, 0.02 * k, 0.04 * k], np.float32)
+        R = Rwc.T
+        kf_R.append(R)
+        kf_t.append(-R @ c)
+    kf_R = np.stack(kf_R)
+    kf_t = np.stack(kf_t)
+    obs_kf = np.repeat(np.arange(nK), nP).astype(np.int32)
+    obs_pt = np.tile(np.arange(nP), nK).astype(np.int32)
+    pc = np.einsum("kij,pj->kpi", kf_R, pts_gt) + kf_t[:, None, :]
+    uv = (pc[..., :2] / pc[..., 2:]) * [fx, fy] + [cx, cy]
+    obs_uv = (uv.reshape(-1, 2) + rng.normal(0, 0.5, (nK * nP, 2))).astype(np.float32)
+    pts0 = pts_gt * (1 + rng.normal(0, 0.02, (nP, 1))).astype(np.float32)
+    xi = rng.normal(0, 0.008, (nK, 6)).astype(np.float32)
+    xi[0] = 0
+    dR, dt = (a.numpy() for a in se3.se3_exp(torch.from_numpy(xi)))
+    kf_R0 = dR @ kf_R
+    kf_t0 = np.einsum("kij,kj->ki", dR, kf_t) + dt
+    return pts0, kf_R0, kf_t0, obs_kf, obs_pt, obs_uv, K

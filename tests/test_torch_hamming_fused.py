@@ -165,10 +165,42 @@ def test_gated_min_launches_nothing_on_cpu(rng):
 
 @pytest.mark.parametrize("module,name", [(proj_matcher, "search_by_projection"),
                                          (matcher, "search_for_initialization")])
-def test_matchers_take_the_fused_min(module, name):
-    """Both matchers reach the distances only through hamming_gated_min."""
+def test_matchers_take_the_fused_min(module, name, rng, monkeypatch):
+    """Both matchers reach the distances only through hamming_gated_min: a
+    call makes one call of it and none of the all-pairs hamming_matrix
+    (which ops.matcher imports for search_for_triangulation)."""
     assert module.hamming_gated_min is hamming.hamming_gated_min
-    assert not hasattr(module, "hamming_matrix"), name
+    calls = []
+
+    def gated(*args):
+        calls.append(args)
+        return hamming.hamming_gated_min(*args)
+
+    def no_matrix(*args):
+        raise AssertionError(f"{name} called hamming_matrix")
+
+    monkeypatch.setattr(module, "hamming_gated_min", gated)
+    monkeypatch.setattr(module, "hamming_matrix", no_matrix, raising=False)
+    P, N = 40, 30
+    desc = torch.tensor(rng.integers(-2**31, 2**31, (P + N, 8)), dtype=torch.int32)
+    xy = torch.tensor(rng.uniform(0, 100, (P + N, 2)), dtype=torch.float32)
+    octave = torch.zeros(P + N, dtype=torch.int32)
+    angle = torch.tensor(rng.uniform(0, 360, P + N), dtype=torch.float32)
+    valid = torch.ones(P + N, dtype=torch.bool)
+    cfg = matcher.MatcherConfig()
+    if module is matcher:
+        module.search_for_initialization(desc[:P], xy[:P], octave[:P], angle[:P], valid[:P],
+                                         desc[P:], xy[P:], octave[P:], angle[P:], valid[P:],
+                                         cfg)
+    else:
+        pts = torch.tensor(rng.uniform(-1, 1, (P, 3)) + [0, 0, 4], dtype=torch.float32)
+        K = torch.tensor([[100.0, 0, 50], [0, 100, 50], [0, 0, 1]])
+        module.search_by_projection(pts, desc[:P], valid[:P], torch.eye(3), torch.zeros(3), K,
+                                    desc[P:], xy[P:], valid[P:], 10.0, cfg, 100, 100,
+                                    kp_octave=octave[P:], scale_factor=1.2,
+                                    pt_normal=torch.zeros(P, 3), pt_dmin=torch.zeros(P),
+                                    pt_dmax=torch.zeros(P), n_levels=8)
+    assert len(calls) == 1
 
 
 def _order_key(x):
