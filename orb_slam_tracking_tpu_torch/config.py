@@ -144,8 +144,9 @@ class TrackerConfig:
     closing (``use_loop_closing``) yet and raises when either is on; their
     defaults stay ``True`` so the two classes stay field-equal. Local BA
     always takes the scatter formulation (``ba_segment_mode`` "auto" or
-    "scatter"); ``lost_recovery_radius_scale`` is read by the JAX
-    package's device mapping loop, which is not ported yet."""
+    "scatter"); ``lost_recovery_radius_scale`` is read by the device
+    mapping loop (``slam/device_mapping.py``, its LOST-recovery tier), as
+    in the JAX package."""
 
     use_motion_model: bool = True
     min_frames: int = 0

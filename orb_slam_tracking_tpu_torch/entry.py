@@ -14,6 +14,13 @@ capacity 2048), with 200 RANSAC hypotheses per model.
 demo point (``examples/demo_tracking.py``): 640x480, 1000 features,
 a 2048-point / 16-keyframe map with an 8-keyframe BA window, 40 rendered
 frames of the 900-point corner field on the strafe trajectory.
+
+``device_loop_entry`` is the device-side mapping loop at the JAX
+package's sequence-throughput recipe (``scripts/tpu_seq_fps.py``, the
+sequence metric of ``bench.py``): 640x480, 1000 features, an
+8192-point / 24-keyframe map with an 8-keyframe BA window, the 1200-point
+corner field over x in [-6, 6] on a 260-frame strafe, bootstrapped by the
+port's ``Tracker`` until it is WORKING.
 """
 
 from __future__ import annotations
@@ -27,13 +34,15 @@ from .config import (CameraConfig, InitConfig, MatcherConfig, OrbConfig,
                      SystemConfig, TrackerConfig)
 from .convert import map_from_numpy
 from .device import DEFAULT_DEVICE, resolve_device
+from .slam.device_mapping import DeviceSequenceLoop, make_device_sequence_loop
 from .slam.fused_step import TrackingStep
-from .slam.tracker import Tracker
+from .slam.tracker import Tracker, TrackState
 from .slam.two_view_init import TwoViewInitializer
 from .utils.synthetic import CornerField, make_trajectory, render_frame
 
-__all__ = ["entry", "init_entry", "tracker_entry", "InitEntry", "TrackerEntry",
-           "ENTRY_CAMERA", "INIT_PAIR", "TRACKER_CONFIG"]
+__all__ = ["entry", "init_entry", "tracker_entry", "device_loop_entry", "InitEntry",
+           "TrackerEntry", "DeviceLoopEntry", "ENTRY_CAMERA", "INIT_PAIR", "TRACKER_CONFIG",
+           "DEVICE_LOOP_CONFIG"]
 
 ENTRY_CAMERA = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0,
                             width=640, height=480)
@@ -137,3 +146,49 @@ def tracker_entry(device: torch.device | str = DEFAULT_DEVICE,
     poses = make_trajectory(n_frames, "strafe")
     frames = [render_frame(field, TRACKER_CONFIG.camera, R, t) for R, t in poses]
     return TrackerEntry(Tracker(TRACKER_CONFIG, device=device), frames, poses)
+
+
+# scripts/tpu_seq_fps.py's recipe, unchanged
+DEVICE_LOOP_CONFIG = SystemConfig(
+    camera=ENTRY_CAMERA, orb=OrbConfig(n_features=1000),
+    tracker=TrackerConfig(max_map_points=8192, max_keyframes=24, ba_window=8,
+                          use_bow=False, use_loop_closing=False))
+DEVICE_LOOP_FIELD_POINTS = 1200
+DEVICE_LOOP_FIELD_X = (-6.0, 6.0)
+DEVICE_LOOP_TRAJECTORY = 260
+DEVICE_LOOP_CAPS = {"tri_cap": 128, "obs_cap": 512}
+
+
+class DeviceLoopEntry(NamedTuple):
+    loop: DeviceSequenceLoop
+    args: Tuple      # (m0, R0, t0, K, frame_id0, kf_count0, kf_ref_inliers0): the loop's state
+    frames: torch.Tensor                         # [n_frames, 480, 640] float32 on the device
+    boot_end: int                                # the trajectory index of frames[0]
+    poses: List[Tuple[np.ndarray, np.ndarray]]   # ground truth of the whole trajectory
+
+
+def device_loop_entry(device: torch.device | str = DEFAULT_DEVICE,
+                      n_frames: int = 192) -> DeviceLoopEntry:
+    """The device loop at the sequence recipe: the port's ``Tracker``
+    tracks the rendered strafe until WORKING; ``loop(frames[:T], *args)``
+    then runs the next ``T <= n_frames`` frames from its map and pose."""
+    device = resolve_device(device)
+    cfg = DEVICE_LOOP_CONFIG
+    field = CornerField(np.random.default_rng(0), n=DEVICE_LOOP_FIELD_POINTS,
+                        x=DEVICE_LOOP_FIELD_X)
+    poses = make_trajectory(DEVICE_LOOP_TRAJECTORY, "strafe")
+    tracker = Tracker(cfg, device=device)
+    i = 0
+    while tracker.state != TrackState.WORKING:
+        if i + n_frames >= len(poses):
+            raise RuntimeError(f"the bootstrap did not reach WORKING by frame {i}")
+        tracker.track(render_frame(field, cfg.camera, *poses[i]), i / 30.0)
+        i += 1
+    frames = torch.tensor(np.stack([render_frame(field, cfg.camera, R, t)
+                                    for R, t in poses[i:i + n_frames]]), device=device)
+    loop = make_device_sequence_loop(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
+                                     device=device, **DEVICE_LOOP_CAPS)
+    args = (tracker.map, torch.tensor(tracker.R, device=device),
+            torch.tensor(tracker.t, device=device), tracker.K, tracker.frame_id + 1,
+            tracker.kf_insert_count, max(tracker.kf_ref_inliers, 1))
+    return DeviceLoopEntry(loop, args, frames, i, poses)

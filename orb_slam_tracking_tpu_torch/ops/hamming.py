@@ -10,9 +10,10 @@ the TPU kernel ``hamming_matrix_pallas``):
   ``[P, N]`` matrix.
 
 On CPU tensors each runs its plain version (``hamming_matrix_reference``,
-``hamming_gated_min_reference``). PyTorch has no popcount and its int32
-``>>`` is arithmetic, so the plain distance sums the bits of each word by
-masked shifts (SWAR). ``.launches`` on each wrapper counts its kernel's launches.
+``hamming_gated_min_reference``). PyTorch has no popcount, so the plain
+distance takes the descriptors' bit planes through a float32 matrix
+product; ``popcount`` sums the bits of int32 words by masked shifts (SWAR).
+``.launches`` on each wrapper counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -30,13 +31,20 @@ BIG = 1 << 20  # the distance of a row with nothing eligible
 
 
 def hamming_matrix_reference(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
-    """[P, 8] x [N, 8] int32 -> [P, N] int32 distances in [0, 256], taken
-    over blocks of 512 rows to bound the [rows, N, 8] temporaries."""
-    out = torch.empty((d1.shape[0], d2.shape[0]), dtype=torch.int32, device=d1.device)
-    for i in range(0, d1.shape[0], 512):
-        out[i:i + 512] = popcount(d1[i:i + 512, None, :] ^ d2[None, :, :]).sum(
-            dim=-1, dtype=torch.int32)
-    return out
+    """[P, 8] x [N, 8] int32 -> [P, N] int32 distances in [0, 256]:
+    pop(a) + pop(b) - 2 <a, b> over the descriptors' {0, 1} bit planes,
+    the inner products a float32 matrix product (TF32 is off in the port,
+    and every partial sum is an integer <= 256, so exact in any order)."""
+    a, b = _bit_planes(d1), _bit_planes(d2)
+    inner = a @ b.T
+    return (a.sum(1)[:, None] + b.sum(1)[None, :] - 2.0 * inner).to(torch.int32)
+
+
+def _bit_planes(d: torch.Tensor) -> torch.Tensor:
+    """[N, 8] int32 words -> [N, 256] float32 bits (masked after the shift,
+    since int32 ``>>`` is arithmetic)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=d.device)
+    return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], 256).to(torch.float32)
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:

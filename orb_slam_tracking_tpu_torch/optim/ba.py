@@ -6,12 +6,18 @@ This is the JAX package's scatter formulation, the one its ``"auto"``
 mode takes off the TPU:
 
 - per-camera 6x6 ``U``, per-point 3x3 ``V``, the gradients and the
-  camera-point coupling ``W`` accumulate over the COO observation list with
-  ``index_add_`` (the ``.at[].add`` segment sums);
+  camera-point coupling ``W`` accumulate over the COO observation list
+  (the ``.at[].add`` segment sums) with ``optim.segment``'s sorted
+  segment sums: each index set is sorted once per solve, and every sum
+  gives the same bits on every run;
 - ``W`` is held only over the FREE cameras, ``[P, nF, 6, 3]`` with ``nF``
   the BA window; fixed and out-of-window cameras scatter into one dump
   slot that is sliced off, so they never enter the Schur system;
-- ``V^-1`` is the closed-form 3x3 adjugate inverse, the reduced camera
+- ``V^-1`` is the closed-form 3x3 adjugate inverse, formed in float64
+  and rounded to the solve's dtype (an f32 adjugate loses about twice the
+  bits that XLA's fused multiply-adds keep in JAX's, and on
+  ill-conditioned problems that left the Schur system not positive
+  definite where JAX's is); the reduced camera
   system is solved by ``cholesky_ex`` + ``cholesky_solve`` (a system that
   is not positive definite gives a non-finite step, which the cost test
   rejects, as JAX's NaN-filled factor does);
@@ -19,8 +25,7 @@ mode takes off the TPU:
   (JAX's ``lax.cond`` no-op) keeps the carry of a step taken after
   convergence, which gives the same result without a host sync.
 
-On CUDA the float scatter-adds are atomics, so the last bits of a solve
-may differ from run to run; nothing here reads a value on the host.
+Nothing here reads a value on the host.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 from ..geometry import se3
 from .lm import huber_weight, inv3x3, nielsen_update
+from .segment import segment_sum, segments
 
 __all__ = ["BAResult", "bundle_adjust", "lm_solver"]
 
@@ -64,12 +70,6 @@ def _obs_residuals(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, fx, fy, cx, cy):
     eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(pc.shape[:-1] + (3, 3))
     J_pc_cam = torch.cat([-se3.hat(pc), eye], dim=-1)           # [O, 3, 6]
     return r, J_proj @ J_pc_cam, J_proj @ Ro, z
-
-
-def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """[O, ...] summed into [n, ...] rows by ``idx`` [O] (int64)."""
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx, vals)
 
 
 def bundle_adjust(
@@ -117,6 +117,10 @@ def lm_solver(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, obs_inv_sigma2, obs_valid
     in_window = free_cam & (free_rank < nF)
     fidx = torch.where(in_window, free_rank, nF)
     obs_cell = opt * (nF + 1) + fidx[okf]
+    # the index sets of the segment sums, fixed for the whole solve; an
+    # invalid observation's terms are zero (its weight is) and left out
+    seg_k, seg_p = segments(okf, nK, obs_valid), segments(opt, nP, obs_valid)
+    seg_w, seg_f = segments(obs_cell, nP * (nF + 1), obs_valid), segments(fidx, nF + 1)
     w_info = torch.where(obs_valid, obs_inv_sigma2, 0.0)
     eye3 = torch.eye(3, dtype=fdt, device=dev)
     eye6 = torch.eye(6, dtype=fdt, device=dev)
@@ -144,21 +148,21 @@ def lm_solver(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, obs_inv_sigma2, obs_valid
         bgc = Jcw[:, 0] * r[:, 0, None] + Jcw[:, 1] * r[:, 1, None]
         bgp = Jpw[:, 0] * r[:, 0, None] + Jpw[:, 1] * r[:, 1, None]
         bW = Jcw[:, 0, :, None] * Jp[:, 0, None, :] + Jcw[:, 1, :, None] * Jp[:, 1, None, :]
-        U = _segment_sum(bU, okf, nK)
-        V = _segment_sum(bV, opt, nP)
-        g_c = _segment_sum(bgc, okf, nK)
-        g_p = _segment_sum(bgp, opt, nP)
+        U = segment_sum(bU, seg_k)
+        V = segment_sum(bV, seg_p)
+        g_c = segment_sum(bgc, seg_k)
+        g_p = segment_sum(bgp, seg_p)
         # coupling over the compact free-camera axis, +1 dump slot
-        Wb = _segment_sum(bW, obs_cell, nP * (nF + 1)).view(nP, nF + 1, 6, 3)[:, :nF]
+        Wb = segment_sum(bW, seg_w).view(nP, nF + 1, 6, 3)[:, :nF]
 
         # damping, multiplicative on the block diagonals
         Ud = U + lam * eye6 * torch.diagonal(U, dim1=-2, dim2=-1)[:, None, :]
         Vd = V + lam * eye3 * torch.diagonal(V, dim1=-2, dim2=-1)[:, None, :]
         Vd = torch.where(pt_valid[:, None, None], Vd, eye3)  # invalid points stay invertible
-        Vinv = inv3x3(Vd)
+        Vinv = inv3x3(Vd.double()).to(fdt)
 
-        Ud_free = _segment_sum(Ud, fidx, nF + 1)[:nF]
-        g_c_free = _segment_sum(torch.where(in_window[:, None], g_c, 0.0), fidx, nF + 1)[:nF]
+        Ud_free = segment_sum(Ud, seg_f)[:nF]
+        g_c_free = segment_sum(torch.where(in_window[:, None], g_c, 0.0), seg_f)[:nF]
         Y = (Wb[..., 0:1] * Vinv[:, None, None, 0, :]
              + Wb[..., 1:2] * Vinv[:, None, None, 1, :]
              + Wb[..., 2:3] * Vinv[:, None, None, 2, :])        # [P, nF, 6, 3]

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig
+from ..optim.segment import segment_sum, segments
 
 __all__ = ["SlamMap", "empty_map", "free_slots", "update_normal_and_depth",
            "apply_ba_result", "OBS_PER_KF"]
@@ -129,8 +130,9 @@ def update_normal_and_depth(m: SlamMap, scale_factor: float, n_levels: int) -> S
     dmin   = dmax / scale^(n_levels - 1).
 
     Points with no valid observation keep their statistics (dmax == 0
-    disables the frustum gates). The segment max is
-    ``scatter_reduce_("amax")`` over zeros: candidates are >= 0."""
+    disables the frustum gates). The direction sums are sorted segment
+    sums (``optim.segment``: the same bits on every run); the segment max
+    is ``scatter_reduce_("amax")`` over zeros: candidates are >= 0."""
     P = m.point_capacity
     okf, opt = m.obs_kf.long(), m.obs_pt.long()
     ov = m.obs_valid & m.kf_valid[okf] & m.pt_valid[opt]
@@ -139,8 +141,8 @@ def update_normal_and_depth(m: SlamMap, scale_factor: float, n_levels: int) -> S
     dist = torch.linalg.vector_norm(view, dim=-1)
     unit = view / dist.clamp_min(1e-9)[:, None]
     w = ov.to(torch.float32)
-    sum_dir = torch.zeros((P, 3), device=m.pts.device).index_add_(0, opt, unit * w[:, None])
-    cnt = torch.zeros(P, device=m.pts.device).index_add_(0, opt, w)
+    sums = segment_sum(torch.cat([unit * w[:, None], w[:, None]], dim=1), segments(opt, P, ov))
+    sum_dir, cnt = sums[:, :3], sums[:, 3]
     normal = sum_dir / cnt.clamp_min(1.0)[:, None]
     normal = normal / torch.linalg.vector_norm(normal, dim=-1, keepdim=True).clamp_min(1e-9)
     octv = m.kf_kp_octave[okf, m.obs_kp.long()].to(torch.float32)

@@ -78,10 +78,16 @@ class TrackState:
 # past the end, which is sliced off.
 
 def _set(x: torch.Tensor, idx: torch.Tensor, vals, ok: torch.Tensor) -> torch.Tensor:
-    """``x.at[idx].set(vals)`` on axis 0 where ``ok``; other lanes dropped."""
+    """``x.at[idx].set(vals)`` on axis 0 where ``ok``; other lanes dropped.
+    A Python scalar ``vals`` is filled in (assigning it would copy it to
+    the device first)."""
     n = x.shape[0]
     buf = torch.cat([x, x[:1]])
-    buf[torch.where(ok, idx.long(), n)] = vals.to(x.dtype) if torch.is_tensor(vals) else vals
+    idx = torch.where(ok, idx.long(), n)
+    if torch.is_tensor(vals):
+        buf[idx] = vals.to(x.dtype)
+    else:
+        buf.index_fill_(0, idx, vals)
     return buf[:n]
 
 
@@ -99,12 +105,13 @@ def _set2(x: torch.Tensor, row, col: torch.Tensor, vals, ok: torch.Tensor) -> to
     return _set(x.reshape(-1), flat, vals, ok).view(x.shape)
 
 
-def scatter_obs(m: SlamMap, slot: int, rows, tgt, kp, uv, inv_s2, ok,
+def scatter_obs(m: SlamMap, slot, rows, tgt, kp, uv, inv_s2, ok,
                 add_stats: int) -> SlamMap:
     """Append observation rows (keyframe ``slot``, point ``tgt``, keypoint
     ``kp``, pixel, information) at ``rows`` where ``ok``; with
     ``add_stats`` 1 also count a found and visible frame for the point
-    (fusion)."""
+    (fusion). ``slot``: an int, or a 1-element int64 tensor on the map's
+    device (the device loop's, never read on the host)."""
     okf = ok.to(torch.int32)
     return m._replace(
         obs_kf=_set(m.obs_kf, rows, slot, ok),
@@ -120,14 +127,14 @@ def scatter_obs(m: SlamMap, slot: int, rows, tgt, kp, uv, inv_s2, ok,
     )
 
 
-def scatter_new_points(m: SlamMap, slot: int, nb: int, pslots, rows1, rows2, kp1, kp2,
+def scatter_new_points(m: SlamMap, slot, nb, pslots, rows1, rows2, kp1, kp2,
                        pts, uv1, uv2, inv1, inv2, birth, ok) -> SlamMap:
     """Create triangulated points at ``pslots`` where ``ok``, each with two
     observations (neighbour keyframe ``nb`` keypoint ``kp1``, current
     keyframe ``slot`` keypoint ``kp2``) and the current keyframe's
-    descriptor."""
+    descriptor. ``slot``, ``nb``: ints or 1-element int64 tensors."""
     N = m.kp_capacity
-    desc = m.kf_kp_desc[slot][kp2.long().clamp(0, N - 1)]
+    desc = m.kf_kp_desc.reshape(-1, 8)[slot * N + kp2.long().clamp(0, N - 1)]
     one = torch.ones_like(pslots, dtype=torch.int32)
 
     def two(x, v1, v2):
@@ -151,23 +158,23 @@ def scatter_new_points(m: SlamMap, slot: int, nb: int, pslots, rows1, rows2, kp1
     )
 
 
-def write_kf(m: SlamMap, slot: int, desc, octave, angle, valid, xy_un, kp_pt,
+def write_kf(m: SlamMap, slot, desc, octave, angle, valid, xy_un, kp_pt,
              R, t, frame_id: int) -> SlamMap:
     """Keyframe ``slot``'s pose and keypoint snapshot, padded to the map's
-    keypoint capacity (association -1, validity False)."""
+    keypoint capacity (association -1, validity False). ``slot``: an int,
+    or a 1-element int64 tensor on the map's device."""
     pad = m.kp_capacity - valid.shape[0]
+    row = torch.arange(m.kf_capacity, device=m.kf_valid.device) == slot
 
     def padded(x, fill=0):
         return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, pad), value=fill)
 
     def at_slot(x, v):
-        x = x.clone()
-        x[slot] = v
-        return x
+        return torch.where(row.view((-1,) + (1,) * (x.dim() - 1)), v, x)
 
     return m._replace(
         kf_R=at_slot(m.kf_R, R), kf_t=at_slot(m.kf_t, t),
-        kf_valid=at_slot(m.kf_valid, True), kf_frame_id=at_slot(m.kf_frame_id, frame_id),
+        kf_valid=m.kf_valid | row, kf_frame_id=at_slot(m.kf_frame_id, frame_id),
         kf_kp_xy=at_slot(m.kf_kp_xy, padded(xy_un)),
         kf_kp_desc=at_slot(m.kf_kp_desc, padded(desc)),
         kf_kp_octave=at_slot(m.kf_kp_octave, padded(octave)),
@@ -177,19 +184,18 @@ def write_kf(m: SlamMap, slot: int, desc, octave, angle, valid, xy_un, kp_pt,
     )
 
 
-def remove_kf(m: SlamMap, slot: int) -> SlamMap:
+def remove_kf(m: SlamMap, slot) -> SlamMap:
     """Invalidate keyframe ``slot``: drop its observations, decrement their
-    points' observation counts, clear its snapshot's associations."""
+    points' observation counts, clear its snapshot's associations.
+    ``slot``: an int, or a 1-element int64 tensor on the map's device; a
+    slot past the last (the keyframe capacity) removes nothing."""
     hit = m.obs_valid & (m.obs_kf == slot)
     dec = torch.zeros_like(m.n_obs).index_add_(0, m.obs_pt.long(), hit.to(torch.int32))
-    kf_kp_pt = m.kf_kp_pt.clone()
-    kf_kp_pt[slot] = -1
-    kf_kp_valid = m.kf_kp_valid.clone()
-    kf_kp_valid[slot] = False
-    kf_valid = m.kf_valid.clone()
-    kf_valid[slot] = False
+    row = torch.arange(m.kf_capacity, device=m.kf_valid.device) == slot
     return m._replace(obs_valid=m.obs_valid & ~hit, n_obs=m.n_obs - dec,
-                      kf_valid=kf_valid, kf_kp_pt=kf_kp_pt, kf_kp_valid=kf_kp_valid)
+                      kf_valid=m.kf_valid & ~row,
+                      kf_kp_pt=torch.where(row[:, None], -1, m.kf_kp_pt),
+                      kf_kp_valid=m.kf_kp_valid & ~row[:, None])
 
 
 def triangulate_world(R1, t1, R2, t2, K, x1, x2) -> torch.Tensor:

@@ -1,15 +1,20 @@
 """Where a path's time goes on the GPU, at its operating point.
 
     python -m orb_slam_tracking_tpu_torch.tools.profile_step
-        [--path tracking|init|tracker] [--frames 10] [--out FILE.json]
+        [--path tracking|init|tracker|device_loop|ba] [--frames 10] [--out FILE.json]
 
 ``tracking`` (the default) runs ``TrackingStep`` at the ``entry()`` point
 (640x480, 1000 keypoints against an 8192-point map); ``init`` runs
 ``TwoViewInitializer`` at the ``init_entry()`` point (a rendered 640x480
 pair, 2000 keypoints, 200 hypotheses); ``tracker`` runs the sequence
 tracker over the ``tracker_entry()`` sequence (see ``profile_tracker``;
-``--frames`` is the sequence length there, default 40). For the first
-two, after a warm-up it reports, per frame (or pair):
+``--frames`` is the sequence length there, default 40); ``device_loop``
+runs the device-side mapping loop at the ``device_loop_entry()`` recipe
+(see ``profile_device_loop``; ``--frames`` is the loop's length, default
+48); ``ba`` times one local BA at the tracker's and at the device loop's
+map shapes as shipped and with its deterministic pieces reverted (see
+``profile_ba``). For the first two, after a warm-up it reports, per frame
+(or pair):
 
 * the step: host-clock ms (to ``synchronize``, median and min) and the
   CUDA-event span (median);
@@ -42,8 +47,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from ..entry import entry, init_entry, tracker_entry
-from ..slam import fused_step, two_view_init
+from ..entry import device_loop_entry, entry, init_entry, tracker_entry
+from ..optim import ba as ba_module
+from ..optim import lm
+from ..slam import device_mapping, fused_step, two_view_init
 from ..slam.tracker import TrackState
 
 # the module whose forward calls each stage, and the stages' names in it
@@ -154,6 +161,218 @@ def count_syncs(fn):
         if "synchroniz" in str(w.message):
             syncs[f"{Path(w.filename).name}:{w.lineno}"] += 1
     return dict(syncs)
+
+
+# the device loop's stages: the instance's tracking step, recovery tier and
+# insert, and inside an insert the module-level calls of device_mapping
+_LOOP_STAGES = ("step", "recover", "insert")
+_INSERT_STAGES = ("covis_match_triangulate", "hamming_matrix", "bundle_adjust",
+                  "update_normal_and_depth")
+
+
+@contextlib.contextmanager
+def loop_stages(loop, host_ms):
+    """Time the device loop's stages (``_LOOP_STAGES`` of the loop and
+    ``_INSERT_STAGES`` inside an insert; ``hamming_matrix`` there is the
+    fuse check's) alone on the host clock, each ending in a
+    ``synchronize``, inside ``record_function`` ranges of their names.
+    Appends to ``host_ms[name]``."""
+    saved = {name: getattr(loop, name) for name in _LOOP_STAGES}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function(f"stage:{name}"):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            host_ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    for name, fn in saved.items():
+        setattr(loop, name, wrap(name, fn))
+    try:
+        with _timed_stages(host_ms, device_mapping, _INSERT_STAGES):
+            yield
+    finally:
+        for name, fn in saved.items():
+            setattr(loop, name, fn)
+
+
+def loop_syncs(loop, run):
+    """Host syncs of ``run()`` by source line, -> (outside the loop's
+    inserts, inside them, the number of inserts)."""
+    outside, inside, n = defaultdict(int), defaultdict(int), [0]
+    insert = loop.insert
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def harvest(into):
+            for w in caught:
+                if "synchroniz" in str(w.message):
+                    into[f"{Path(w.filename).name}:{w.lineno}"] += 1
+            del caught[:]
+
+        def counted(*args):
+            harvest(outside)
+            n[0] += 1
+            try:
+                return insert(*args)
+            finally:
+                harvest(inside)
+
+        loop.insert = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            loop.insert = insert
+        harvest(outside)
+    return dict(outside), dict(inside), n[0]
+
+
+def profile_device_loop(e, n_frames: int = 48, warm: bool = True) -> dict:
+    """The device loop over the first ``n_frames`` frames of a
+    ``device_loop_entry`` ``e``: host ms per frame (the run's host clock to
+    ``synchronize`` over its frames) and per insert; per stage host ms per
+    call (each stage timed alone in another run) and device ms per call
+    (from a ``torch.profiler`` trace of a third, device events in each
+    stage's range; the insert's stages are inside it); the device's busy
+    share; and the host syncs of the frames outside the inserts and of the
+    inserts, from a fourth run."""
+    frames = e.frames[:n_frames]
+
+    def run():
+        return e.loop(frames, *e.args)
+
+    if warm:
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, outs = run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n_inserts = int(outs.inserted_kf.sum())
+    host = defaultdict(list)
+    with loop_stages(e.loop, host):
+        run()
+    calls = defaultdict(list)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with loop_stages(e.loop, calls):
+            run()
+    device_us, per_stage_us, launches = _device_split(prof)
+    if device_us == 0:
+        raise RuntimeError("the profiler trace holds no device events")
+    outside, inside, n_ins = loop_syncs(e.loop, run)
+    med = statistics.median
+    return {
+        "path": "device_loop", "frames": n_frames, "inserts": n_inserts,
+        "lost": int(outs.lost.sum()), "sequence_host_ms": wall_ms,
+        "host_ms_per_frame": wall_ms / n_frames,
+        "stage_host_ms_per_call": {k: med(v) for k, v in host.items()},
+        "stage_calls": {k: len(v) for k, v in calls.items()},
+        "stage_device_ms_per_call": {k: per_stage_us.get(k, 0.0) / 1e3 / len(v)
+                                     for k, v in calls.items()},
+        "device_ms_per_frame": device_us / 1e3 / n_frames,
+        "device_ms_per_insert": per_stage_us.get("insert", 0.0) / 1e3 / max(n_inserts, 1),
+        "device_busy_share": device_us / 1e3 / wall_ms,
+        "kernel_launch_calls_per_frame": launches / n_frames,
+        "syncs_per_frame_outside_inserts": sum(outside.values()) / n_frames,
+        "syncs_per_insert": sum(inside.values()) / max(n_ins, 1),
+        "sync_sites_outside_inserts": outside, "sync_sites_inserts": inside,
+    }
+
+
+@contextlib.contextmanager
+def ba_variant(atomics: bool = False, f32_inverse: bool = False):
+    """Local BA with its deterministic pieces reverted, for comparison:
+    ``atomics`` sums the segments with ``index_add_`` over every
+    observation (float atomics on the card, the form before the sorted
+    segment sums), ``f32_inverse`` forms the point blocks' inverses by the
+    f32 adjugate."""
+    saved = (ba_module.segments, ba_module.segment_sum, ba_module.inv3x3)
+    if atomics:
+        ba_module.segments = lambda idx, n, valid=None: (idx.long(), n)
+        ba_module.segment_sum = lambda vals, seg: torch.zeros(
+            (seg[1],) + vals.shape[1:], dtype=vals.dtype, device=vals.device).index_add_(
+                0, seg[0], vals)
+    if f32_inverse:
+        ba_module.inv3x3 = lambda M: lm.inv3x3(M.to(torch.float32))
+    try:
+        yield
+    finally:
+        ba_module.segments, ba_module.segment_sum, ba_module.inv3x3 = saved
+
+
+def _ba_args_of(run, module, name="bundle_adjust"):
+    """The arguments of the first ``module.name`` call that ``run()`` makes."""
+    found = []
+    fn = getattr(module, name)
+
+    def record(*args, **kwargs):
+        if not found:
+            found.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+    return found[0]
+
+
+def profile_ba(device, runs: int = 10) -> dict:
+    """One local BA from a fixed map state at the tracker's shape (the
+    first local BA of the ``tracker_entry`` sequence from frame 24 on:
+    2048 points, 16 keyframes, 8192 observations) and at the device loop's
+    (its first insert at the ``device_loop_entry`` recipe: 8192 points, 24
+    keyframes, 12288 observations), BA window 8: device ms per BA
+    (``torch.profiler``, ``runs`` calls), as shipped and with each
+    deterministic piece reverted (``ba_variant``); and for each, whether
+    ``runs`` results are bit-identical."""
+    from ..slam import tracker as tracker_module
+
+    tracker, frames, _ = tracker_entry(device)
+    run_sequence(tracker, frames[:24])
+    tr_args = _ba_args_of(lambda: run_sequence(tracker, frames[24:], 24), tracker_module)
+    e = device_loop_entry(device, 8)
+    dl_args = _ba_args_of(lambda: e.loop(e.frames, *e.args), device_mapping)
+    variants = {"shipped": {}, "atomics": {"atomics": True}, "f32_inverse": {"f32_inverse": True},
+                "before": {"atomics": True, "f32_inverse": True}}
+    res = {"path": "ba", "runs": runs}
+    for shape, (args, kwargs) in (("tracker", tr_args), ("device_loop", dl_args)):
+        res[f"{shape}_shape"] = {"points": args[2].shape[0], "keyframes": args[0].shape[0],
+                                 "observations": args[3].shape[0],
+                                 "valid_observations": int(args[7].sum())}
+        for name, kw in variants.items():
+            with ba_variant(**kw):
+                def one():
+                    return ba_module.bundle_adjust(*args, **kwargs)
+                outs = [one() for _ in range(runs)]
+                same = all(all(torch.equal(x, y) for x, y in zip(o, outs[0])) for o in outs)
+                ms = _device_ms(one, runs)
+            res[f"{shape}_{name}_device_ms"] = ms
+            res[f"{shape}_{name}_repeats_bit_for_bit"] = same
+    return res
+
+
+def _device_ms(fn, runs: int) -> float:
+    """Device ms of one ``fn()``: the device events of ``runs`` calls in a
+    ``torch.profiler`` trace, summed, over ``runs``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us, _, _ = _device_split(prof)
+    if us == 0:
+        raise RuntimeError("the profiler trace holds no device events")
+    return us / 1e3 / runs
 
 
 def run_sequence(tracker, frames, start: int = 0):
@@ -282,9 +501,11 @@ def next_insert(tracker, frames, start: int):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=sorted(_PATHS) + ["tracker"], default="tracking")
+    ap.add_argument("--path", choices=sorted(_PATHS) + ["tracker", "device_loop", "ba"],
+                    default="tracking")
     ap.add_argument("--frames", type=int, default=None,
-                    help="frames (pairs) to time: default 10; the tracker's sequence: 40")
+                    help="frames (pairs) to time: default 10; the tracker's sequence: 40; "
+                         "the device loop's: 48")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -292,6 +513,11 @@ def main(argv=None) -> dict:
     device = torch.device("cuda", 0)
     if args.path == "tracker":
         return _report(profile_tracker(device, args.frames or 40), args.out)
+    if args.path == "ba":
+        return _report(profile_ba(device), args.out)
+    if args.path == "device_loop":
+        n = args.frames or 48
+        return _report(profile_device_loop(device_loop_entry(device, n), n), args.out)
     args.frames = args.frames or 10
     forward, inputs = (entry if args.path == "tracking" else init_entry)(device)[:2]
     module, stages = _PATHS[args.path]

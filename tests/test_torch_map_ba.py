@@ -3,6 +3,7 @@ JAX package, on the CPU: the same seeded numpy inputs go through the JAX
 function and the port's counterpart (its plain kernel versions, since the
 tensors lie on the CPU), and each tolerance states its reason."""
 
+import contextlib
 import dataclasses
 from unittest import mock
 
@@ -30,6 +31,7 @@ from orb_slam_tracking_tpu_torch.geometry.fundamental import fundamental_from_po
 from orb_slam_tracking_tpu_torch.geometry.pnp import ransac_pnp
 from orb_slam_tracking_tpu_torch.ops import hamming
 from orb_slam_tracking_tpu_torch.ops.matcher import match_descriptors, search_for_triangulation
+from orb_slam_tracking_tpu_torch.optim import ba as ba_module
 from orb_slam_tracking_tpu_torch.optim.ba import BAResult, bundle_adjust, lm_solver
 from orb_slam_tracking_tpu_torch.optim.lm import inv3x3
 from orb_slam_tracking_tpu_torch.slam import map as slam_map
@@ -614,28 +616,39 @@ def _port_ensemble(args, rel, n_orders, seed=100):
     and f32 ones with the observations and the points in ``n_orders``
     random orders besides their own (every segment sum and contraction
     then adds in another order, which is how two f32 implementations of
-    one step differ). -> [step(carry as numpy) -> carry as numpy]."""
+    one step differ), each once as the port forms the point blocks'
+    inverses (in float64, rounded to f32) and once with JAX's f32
+    adjugate, which its fused multiply-adds leave between the two. ->
+    [step(carry as numpy) -> carry as numpy]; the second is the port's
+    own step."""
     rng = np.random.default_rng(seed)
     nP, O = len(args[2]), len(args[3])
     f64 = [a.astype(np.float64) if a.dtype == np.float32 else a for a in args]
+    orders = [(np.arange(O), np.arange(nP))] * 2
+    orders += [(rng.permutation(O), rng.permutation(nP)) for _ in range(n_orders)]
     steps = []
-    for m in range(n_orders + 2):
-        a, po, pq = list(f64 if m == 0 else args), np.arange(O), np.arange(nP)
-        if m > 1:
-            po, pq = rng.permutation(O), rng.permutation(nP)
-        back = np.argsort(pq)
-        a[2], a[9] = a[2][pq], a[9][pq]
-        a[3], a[4] = a[3][po], back[a[4][po]].astype(np.int32)
-        a[5], a[6], a[7] = a[5][po], a[6][po], a[7][po]
-        _, step, _ = lm_solver(*map(_t, a), early_stop_rel=rel)
+    for f32_inverse in (False, True):
+        for m, (po, pq) in enumerate(orders):
+            if m == 0 and f32_inverse:
+                continue
+            a = list(f64 if m == 0 else args)
+            back = np.argsort(pq)
+            a[2], a[9] = a[2][pq], a[9][pq]
+            a[3], a[4] = a[3][po], back[a[4][po]].astype(np.int32)
+            a[5], a[6], a[7] = a[5][po], a[6][po], a[7][po]
+            _, step, _ = lm_solver(*map(_t, a), early_stop_rel=rel)
 
-        def run(c, step=step, pq=pq, back=back, dt=a[2].dtype):
-            c = [torch.tensor(x.astype(dt) if x.dtype == np.float32 else x) for x in c]
-            c[2] = c[2][pq]
-            out = [x.numpy() for x in step(tuple(c))]
-            out[2] = out[2][back]
-            return out
-        steps.append(run)
+            def run(c, step=step, pq=pq, back=back, dt=a[2].dtype, f32_inverse=f32_inverse):
+                c = [torch.tensor(x.astype(dt) if x.dtype == np.float32 else x) for x in c]
+                c[2] = c[2][pq]
+                with contextlib.ExitStack() as stack:
+                    if f32_inverse:
+                        stack.enter_context(mock.patch.object(
+                            ba_module, "inv3x3", lambda M: inv3x3(M.to(torch.float32))))
+                    out = [x.numpy() for x in step(tuple(c))]
+                out[2] = out[2][back]
+                return out
+            steps.append(run)
     return steps
 
 
@@ -676,6 +689,33 @@ def _lockstep(args, rel, iters, edit=None, n_orders=4):
     return seen
 
 
+def _assert_second_step_factors(args):
+    """Seed 0's second step from JAX's iterate, where an f32 adjugate V^-1
+    leaves the port's Schur system not positive definite (every order of
+    the ensemble fails to factor there) while JAX's factors: the port's own
+    step factors (``cholesky_ex``'s info 0) and takes JAX's decision."""
+    carry, jstep = _jx_stepper(args, 1e-4)
+    carry = jstep(carry)
+    c = [np.asarray(x) for x in carry]
+    j = [np.asarray(x) for x in jstep(carry)]
+    infos = []
+    factor = torch.linalg.cholesky_ex
+
+    def spy(A, **kw):
+        L, info = factor(A, **kw)
+        infos.append(int(info))
+        return L, info
+
+    _, own, adjugate = _port_ensemble(args, 1e-4, 0)
+    with mock.patch.object(torch.linalg, "cholesky_ex", spy):
+        adjugate(c)
+        out = own(c)
+    assert infos[0] != 0 and infos[1] == 0, infos
+    key = lambda o: (bool(o[5] < c[5]), bool(o[6]), int(o[7]))
+    assert key(out) == key(j) == (True, False, 0)
+    assert np.isfinite(out[5]) and float(out[5]) < float(c[5])
+
+
 @pytest.mark.parametrize("case", ["gate", "skip", "midsolve0", "midsolve2"])
 def test_bundle_adjust_gate_matches_jax(rng, case):
     """test_ba.py:192,217,239: the early-stop gate at 1e-4 beside JAX's,
@@ -708,6 +748,8 @@ def test_bundle_adjust_gate_matches_jax(rng, case):
         seen = _lockstep(args, 1e-4, iters)
         assert len(seen) >= 8
         assert any(s[0] for s in seen) and any(not s[0] and s[2] > 0 for s in seen)
+        if case == "midsolve0":
+            _assert_second_step_factors(args)
         return
     args = _ba_args(rng)
     iters, rel = 15, (1e-4 if case == "gate" else 1e-3)
