@@ -45,10 +45,26 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
    a frame and of an insert; one keyframe insert from a fixed map state
    through the kernels and through the plain versions, twice each: events
    and every field identical (the segment sums repeat bit for bit); the
-   whole sequence a second time, bit for bit; and the relocalization recipe (LOST
-   after 3 blank frames, recovered by frame 22, rotation error < 4 deg at
-   frame 25);
-9. the device-side mapping loop at the ``device_loop_entry()`` recipe (the
+   whole sequence a second time, bit for bit (the keyframe database too);
+   the reference-keyframe rescue of ``tests/test_tracking.py`` (a corrupted
+   motion model, the newest keyframe matched under the vocabulary's nodes,
+   within 3 deg of the normally tracked pose, one ``hamming_matrix``
+   launch), through the kernels and the plain versions, identical; and the
+   relocalization recipe with BoW candidates (LOST after 3 blank frames,
+   recovered by frame 22, rotation error < 4 deg at frame 25). The tracker
+   runs the demo's configuration: BoW with the bundled 100k-word vocabulary
+   and loop closing on;
+9. loop closing on ``utils/loop_world.py`` (the port's copy of the
+   ``loop_world`` fixture of ``tests/test_loop_closing.py``, at its fixture
+   scale): the drifted world closed by the essential graph alone, its
+   Sim(3) seeded by the global ratio test, with that file's assertions;
+   then the physical-drift world with global BA under the world's
+   vocabulary, seeded by SearchByBoW as the demo's configuration is (cost
+   < 1e-3, centre error under a quarter of the drift's, ATE < 0.02); per
+   event the host and device ms of detect, Sim(3), fuse, correct and
+   global BA, the host syncs, the kernel launches; the event through the
+   kernels twice and through the plain versions, identical;
+10. the device-side mapping loop at the ``device_loop_entry()`` recipe (the
    JAX package's ``scripts/tpu_seq_fps.py``: 640x480, 1000 features, an
    8192-point / 24-keyframe map, BA window 8, bootstrapped by the port's
    ``Tracker``): the loop over T1 = 48 and T2 = 192 frames, the two-point
@@ -63,7 +79,9 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
 
 The line before the last is ``nvidia-smi``'s name and power limit, the one
 before it a JSON object of per-kernel results (launches counted on each
-path); the last line is ``{"ok": true, "device": {...}}``. There is no CPU
+path: tracking, init, tracker, tracker_rescue, loop_ratio, loop,
+device_loop); the
+last line is ``{"ok": true, "device": {...}}``. There is no CPU
 path: without a CUDA device the script raises.
 """
 
@@ -167,21 +185,24 @@ def plain_kernels():
     """Route the main paths' kernel calls to the plain versions."""
     from orb_slam_tracking_tpu_torch.ops import (
         atlas, describe, fast, hamming, matcher, proj_matcher)
-    from orb_slam_tracking_tpu_torch.slam import device_mapping
+    from orb_slam_tracking_tpu_torch.slam import device_mapping, loop_closing
 
     saved = (atlas.fast_score, atlas.orient_describe, proj_matcher.hamming_gated_min,
-             matcher.hamming_gated_min, matcher.hamming_matrix, device_mapping.hamming_matrix)
+             matcher.hamming_gated_min, matcher.hamming_matrix, device_mapping.hamming_matrix,
+             loop_closing.hamming_matrix)
     atlas.fast_score = fast.fast_score_reference
     atlas.orient_describe = describe.orient_describe_reference
     proj_matcher.hamming_gated_min = hamming.hamming_gated_min_reference
     matcher.hamming_gated_min = hamming.hamming_gated_min_reference
     matcher.hamming_matrix = hamming.hamming_matrix_reference
     device_mapping.hamming_matrix = hamming.hamming_matrix_reference
+    loop_closing.hamming_matrix = hamming.hamming_matrix_reference
     try:
         yield
     finally:
         (atlas.fast_score, atlas.orient_describe, proj_matcher.hamming_gated_min,
-         matcher.hamming_gated_min, matcher.hamming_matrix, device_mapping.hamming_matrix) = saved
+         matcher.hamming_gated_min, matcher.hamming_matrix, device_mapping.hamming_matrix,
+         loop_closing.hamming_matrix) = saved
 
 
 @contextlib.contextmanager
@@ -225,8 +246,10 @@ def phase_build():
 def phase_kernels(device, loop_entry):
     """Each kernel against its plain version at the main paths' shapes:
     all at the tracking step's, and B2-B4f at the init pair's too (B1 sees
-    the same canvas on both); the matrix at the tracker's insert and at
-    the device loop's fuse check; the fused Hamming row minima at the gates
+    the same canvas on both); the matrix at the tracker's insert, at the
+    device loop's fuse check, at BoW matching's [2048, 1024] and at the
+    loop event's Sim(3) growing and fuse (recorded from one event on
+    ``loop_world``); the fused Hamming row minima at the gates
     the two matchers really give it (the device loop's recovery tier's wide
     match among them, from ``loop_entry``'s bootstrapped map), and on a
     tie-heavy case; then the launch floor."""
@@ -340,8 +363,10 @@ def phase_kernels(device, loop_entry):
         return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], 256).to(torch.bfloat16)
 
     def b3_at(a, n):
-        b = torch.randint(-2**31, 2**31, (n, 8), generator=g, device=device,
-                          dtype=torch.int64).to(torch.int32)
+        return b3_on(a, torch.randint(-2**31, 2**31, (n, 8), generator=g, device=device,
+                                      dtype=torch.int64).to(torch.int32))
+
+    def b3_on(a, b):
         pa, pb = planes(a), planes(b)
         p1, p2 = pa.sum(1, dtype=torch.int32), pb.sum(1, dtype=torch.int32)
         try:  # f32 output where this torch has it, else bf16 (also exact)
@@ -356,7 +381,7 @@ def phase_kernels(device, loop_entry):
             raise AssertionError("the bf16 bit-plane formulation is not exact")
         log("kernels", f"hamming_matrix library call: torch.mm of bf16 planes -> "
             f"{inner().dtype}; p1 + p2 - 2 inner equals the plain version exactly")
-        P, N = a.shape[0], n
+        P, N = a.shape[0], b.shape[0]
         work = (32.0 * (P + N) + 4.0 * P * N, 3.0 * P * N, 512.0 * P * N)
         return check("hamming_matrix", lambda: hamming.hamming_matrix(a, b),
                      lambda: hamming.hamming_matrix_reference(a, b), work, library=inner,
@@ -376,6 +401,22 @@ def phase_kernels(device, loop_entry):
     fuse_desc = torch.randint(-2**31, 2**31, (FUSE_MATRIX[0], 8), generator=g,
                               device=device, dtype=torch.int64).to(torch.int32)
     b3["fuse_shape"] = b3_at(fuse_desc, FUSE_MATRIX[1])
+    # BoW matching (the tracker's reference-keyframe rescue): a keyframe
+    # snapshot's 2048 rows against a frame's 1024 keypoints
+    b3["bow_shape"] = b3_at(init_desc, cfg.max_keypoints)
+    # loop closing on the loop_world event: the Sim(3) match growing (the two
+    # keyframes' snapshots) and SearchAndFuse (the loop side's points, padded
+    # to a power of two, against a group keyframe's snapshot), as recorded
+    from orb_slam_tracking_tpu_torch.slam import loop_closing
+    from orb_slam_tracking_tpu_torch.utils import loop_world as lw
+
+    lw_world = lw.build_loop_world(True, device)
+    loop_calls = []
+    with recorded(loop_closing, "hamming_matrix", loop_calls):
+        loop_closing.LoopCloser(lw.loop_world_config(), lw_world["K"], device=device
+                                ).on_keyframe(lw_world["m"], lw_world["db"], 9)
+    b3["loop_grow_shape"] = b3_on(*loop_calls[0])
+    b3["loop_fuse_shape"] = b3_on(*loop_calls[-1])
     ragged = init_desc[:999], init_desc[1000:1777]  # odd N, rows and columns past a tile
     if not torch.equal(hamming.hamming_matrix(*ragged), hamming.hamming_matrix_reference(*ragged)):
         raise AssertionError("hamming_matrix differs from plain at [999, 777]")
@@ -582,6 +623,14 @@ TRACKER_GATES = {"min_working": 18, "rot_spread_deg": 1.5, "ate": 0.02, "min_kf"
 # (PER_FRAME), two more fused minima on a frame that takes the recovery
 # tier, and per insert one all-pairs matrix for triangulation ([3 * 2048,
 # 2048]) and one per covisible neighbour for the fuse check ([2048, 8192])
+# the BoW and loop-closing paths: the tracker's reference-keyframe rescue
+# matches under vocabulary nodes (one all-pairs matrix); a loop event grows
+# its Sim(3) matches and fuses with the all-pairs matrix, and seeds RANSAC
+# under the vocabulary's nodes with the all-pairs matrix too ("loop", the
+# demo's branch) or, with no vocabulary, through match_descriptors' fused
+# minima ("loop_ratio")
+PER_BOW_PATH = {"hamming_matrix": ("tracker_rescue", "loop_ratio", "loop"),
+                "hamming_gated_min": ("loop_ratio",)}
 LOOP_T = (48, 192)
 PER_RECOVERY = {"hamming_gated_min": 2}
 PER_LOOP_INSERT = {"hamming_matrix": 4}
@@ -956,6 +1005,7 @@ def _insert_outputs(tracker, out):
     """An insert's result: its events, and the map's fields and pose."""
     m = tracker.map
     return out, {**{f: getattr(m, f) for f in m._fields},
+                 "kfdb_bow": tracker.kf_db.bow, "kfdb_valid": tracker.kf_db.valid,
                  "R": torch.tensor(tracker.R), "t": torch.tensor(tracker.t)}
 
 
@@ -1037,12 +1087,13 @@ def phase_tracker(device):
             and all(a[0] == b[0] and np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
                     for a, b in zip(again.trajectory, tracker.trajectory))
             and all(torch.equal(getattr(again.map, f), getattr(tracker.map, f))
-                    for f in tracker.map._fields))
+                    for f in tracker.map._fields)
+            and all(torch.equal(a, b) for a, b in zip(again.kf_db, tracker.kf_db)))
     if not same:
         raise AssertionError(f"the second run differs: ATE {ate2} vs {ate}, points "
                              f"{int(again.map.n_points())} vs {int(tracker.map.n_points())}")
-    log("tracker", f"the sequence a second time: per-frame metrics, poses, map and ATE "
-        f"{ate2!r} identical")
+    log("tracker", f"the sequence a second time: per-frame metrics, poses, map, keyframe "
+        f"database and ATE {ate2!r} identical")
     spread = max(rot_errs) - min(rot_errs) if rot_errs else float("inf")
     n_points = int(tracker.map.n_points())
     init_frame = next((i for i, m in enumerate(metrics) if m.get("init") == "success"), None)
@@ -1112,6 +1163,44 @@ def phase_tracker(device):
         "twice through the kernels and twice through the plain versions: events and every "
         "field identical")
 
+    # the reference-keyframe rescue of tests/test_tracking.py: from the fixed
+    # WORKING state, a corrupted motion model (20 deg of yaw, 4 units of x)
+    # sends the projection match off the map; the frame is matched to the
+    # newest keyframe under the vocabulary's direct-index nodes
+    # (match_descriptors_bow: one hamming_matrix launch), then pose LM
+    th = np.radians(20.0)
+    vel_R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]],
+                     np.float32)
+
+    def rescue():
+        ps.restore(tracker, frame_state)
+        tracker.vel_R, tracker.vel_t = vel_R, np.array([4.0, 0.0, 0.0], np.float32)
+        tracker.have_velocity = True
+        return _insert_outputs(tracker, tracker.track(frames[plain_frame], plain_frame / 30.0))
+
+    one_frame()
+    R_ok = tracker.R.copy()
+    reset_counters()
+    r1 = rescue()
+    rescue_counts = read_counters()
+    r2 = rescue()
+    with plain_kernels():
+        rp = rescue()
+    info = r1[0].get("ref_kf_track")
+    rerr = _rot_err_deg(r1[1]["R"].numpy(), R_ok)
+    log("tracker", f"reference-keyframe rescue at frame {plain_frame} (corrupted motion model): "
+        f"{info}, {r1[0].get('n_proj_matches')} projection matches; rotation {rerr:.4f} deg from "
+        f"the normally tracked pose; launches {rescue_counts}")
+    if (info is None or "lost" in r1[0] or info["n_inliers"] < 10 or rerr >= 3.0
+            or rescue_counts["hamming_matrix"] != 1):
+        raise AssertionError("the reference-keyframe rescue failed")
+    for label, a, b in (("run to run", r1, r2), ("kernel vs plain", r1, rp)):
+        differ = {f: d for f, d in _differ(a, b).items() if d}
+        if differ or a[0] != b[0]:
+            raise AssertionError(f"rescue {label}: fields {differ}, events {a[0]} vs {b[0]}")
+    log("tracker", "the rescue twice through the kernels and once through the plain versions: "
+        "events and every field identical")
+
     # relocalization: 14 frames, 3 blank (LOST), then the frames from 17 on
     tracker, frames, poses = tracker_entry(device, n_frames=26)
     ps.run_sequence(tracker, frames[:14])
@@ -1131,7 +1220,169 @@ def phase_tracker(device):
         f"rotation error {rerr:.4f} deg at frame 25")
     if recovered is None or recovered > 22 or rerr >= 4.0:
         raise AssertionError("relocalization misses its gates (by frame 22, < 4 deg)")
-    return counts
+    return counts, rescue_counts
+
+LOOP_STAGES = ("detect", "compute_sim3", "fuse_loop_points", "correct", "global_ba")
+
+
+def _closer_stages(lc, host, launches):
+    """Wrap the loop closer's stages on the instance: host ms per stage (a
+    ``synchronize`` before and after), kernel launches per stage, each
+    inside a ``record_function`` range ``stage:<name>``."""
+    from torch.profiler import record_function
+
+    for name in LOOP_STAGES:
+        fn = getattr(lc, name)
+
+        def timed(*a, _fn=fn, _name=name):
+            torch.cuda.synchronize()
+            before = read_counters()
+            t0 = time.perf_counter()
+            with record_function(f"stage:{_name}"):
+                out = _fn(*a)
+                torch.cuda.synchronize()
+            host[_name] = host.get(_name, 0.0) + (time.perf_counter() - t0) * 1e3
+            after = read_counters()
+            launches[_name] = {k: launches.get(_name, {}).get(k, 0) + after[k] - before[k]
+                               for k in after if after[k] - before[k]}
+            return out
+
+        setattr(lc, name, timed)
+    return lc
+
+
+def _event_state(m, info):
+    return info, {f: getattr(m, f) for f in m._fields}
+
+
+def phase_loop(device):
+    """Loop closing on the port's copy of the JAX tests' ``loop_world``
+    (10 keyframes round a 150-landmark ring, the revisit a drifted
+    duplicate of the loop keyframe's region; 16 keyframes, 512 points, 128
+    keypoints a keyframe): the graph-only event on the drifted world, its
+    closer without a vocabulary (the global ratio test seeds the Sim(3)),
+    with tests/test_loop_closing.py's assertions; then the full event
+    (detect, SearchByBoW under the world's vocabulary, Sim(3), fuse,
+    correct, global BA) on the physical-drift world, timed per stage on the
+    host and the device, its host syncs and kernel launches per event,
+    twice through the kernels and once through the plain versions,
+    identical. -> the launches of the full event and of the graph-only
+    one."""
+    from orb_slam_tracking_tpu_torch.slam.loop_closing import LoopCloser
+    from orb_slam_tracking_tpu_torch.tools import profile_step as ps
+    from orb_slam_tracking_tpu_torch.utils import loop_world as lw
+    from orb_slam_tracking_tpu_torch.utils.metrics import ate_rmse
+
+    N = lw.N_KF
+
+    def errs(m, w):
+        return lw.center_errors(m.kf_R[:N].cpu().numpy(), m.kf_t[:N].cpu().numpy(),
+                                w["R_gt"], w["t_gt"])
+
+    # the drifted world, essential graph only
+    w = lw.build_loop_world(False, device)
+    err_before = errs(w["m"], w)
+    torch.cuda.synchronize()
+    reset_counters()
+    m2, info = LoopCloser(lw.loop_world_config(0), w["K"], device=device).on_keyframe(
+        w["m"], w["db"], 9)
+    torch.cuda.synchronize()
+    ratio_counts = read_counters()
+    err_after = errs(m2, w)
+    kp = m2.kf_kp_pt.cpu().numpy()
+    shared = len(np.intersect1d(kp[9][kp[9] >= 0], kp[0][kp[0] >= 0]))
+    log("loop", f"drifted world, graph only: {info['loop']}, {info['loop_inliers']} Sim(3) "
+        f"inliers, scale {info['loop_scale']:.5f} (1 / drift {1 / w['s_drift']:.5f}), "
+        f"{info['loop_edges']} edges, {info['loop_fused']} points fused, pose-graph cost "
+        f"{info['loop_cost0']:.4f} -> {info['loop_cost']:.4f}; keyframes 9 and 0 share {shared} "
+        f"points; centre error of keyframes 1-3 {err_before[1:4].mean():.4f} -> "
+        f"{err_after[1:4].mean():.4f}, 1-8 {err_before[1:9].mean():.4f} -> "
+        f"{err_after[1:9].mean():.4f}; launches {ratio_counts}")
+    if (info["loop"] != "closed with kf 0" or info["loop_fused"] < 10 or shared < 10
+            or abs(info["loop_scale"] - 1 / w["s_drift"]) >= 0.02
+            or err_after[1:4].mean() > err_before[1:4].mean() + 0.05
+            or err_after[1:9].mean() >= 1.5 * err_before[1:9].mean()):
+        raise AssertionError("the drifted loop was not closed as tests/test_loop_closing.py "
+                             "requires")
+
+    # the physical world with global BA, seeded by SearchByBoW: one warm
+    # event, then the timed one
+    w = lw.build_loop_world(True, device)
+    cfg = lw.loop_world_config(8)
+    err_before = errs(w["m"], w)
+
+    def closer():
+        return LoopCloser(cfg, w["K"], vocab=w["voc"], device=device)
+
+    def event():
+        return closer().on_keyframe(w["m"], w["db"], 9)
+
+    event()
+    host, launches = {}, {}
+    lc = _closer_stages(closer(), host, launches)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    m2, info = lc.on_keyframe(w["m"], w["db"], 9)
+    torch.cuda.synchronize()
+    event_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counters()
+    err_gba = errs(m2, w)
+    ate = ate_rmse(lw.centers(m2.kf_R[:N].cpu().numpy(), m2.kf_t[:N].cpu().numpy()),
+                   lw.centers(w["R_gt"], w["t_gt"]))
+    log("loop", f"physical world, full event: {info['loop']}, {info['loop_inliers']} Sim(3) "
+        f"inliers, {info['loop_fused']} fused, pose-graph cost {info['loop_cost0']:.4f} -> "
+        f"{info['loop_cost']:.4f}, global BA cost {info['gba_cost0']:.4f} -> "
+        f"{info['gba_cost']:.6f}; centre error of keyframes 1-9 {err_before[1:].mean():.4f} -> "
+        f"{err_gba[1:].mean():.4f}; ATE (Sim3-aligned) {ate:.3e}; launches {counts}")
+    if (not info["loop"].startswith("closed") or info["gba_cost"] >= 1e-3
+            or err_gba[1:].mean() >= 0.25 * err_before[1:].mean() or ate >= 0.02):
+        raise AssertionError("the physical loop was not closed as tests/test_loop_closing.py "
+                             "requires")
+    # SearchByBoW's seeds clear loop_min_inliers: no fallback to the global
+    # ratio test, and the seed matrix is the Sim(3) stage's first launch
+    sim3_launches = launches["compute_sim3"]
+    if sim3_launches.get("hamming_gated_min", 0) or sim3_launches.get("hamming_matrix", 0) < 2:
+        raise AssertionError(f"the Sim(3) stage was not seeded by SearchByBoW: {sim3_launches}")
+
+    # the event once more under the profiler: device ms by stage
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _closer_stages(closer(), {}, {}).on_keyframe(w["m"], w["db"], 9)
+    dev_us, per_stage, n_launch = ps._device_split(prof)
+    dev = {k: per_stage.get(k, 0.0) / 1e3 for k in LOOP_STAGES}
+    if dev_us == 0 or dev["correct"] == 0:
+        raise AssertionError("the profiler trace of the loop event holds no device events")
+    host["correct"] -= host["fuse_loop_points"]   # correct() calls the fuse
+    dev["correct"] -= dev["fuse_loop_points"]
+    log("loop", f"per event, host ms (each stage between synchronizes) / device ms "
+        f"(one profiled event; {dev_us / 1e3:.4f} device ms, {n_launch} launch calls in "
+        "all): "
+        + ", ".join(f"{k} {host[k]:.3f} / {dev[k]:.4f}" for k in LOOP_STAGES)
+        + f" (correct without the fuse); the whole event {event_ms:.3f} ms host; launches "
+        "by stage " + "; ".join(f"{k} {v}" for k, v in launches.items() if v))
+    syncs = ps.count_syncs(event)
+    log("loop", f"host syncs per event: {sum(syncs.values())} ("
+        + ", ".join(f"{k} x{v}" for k, v in sorted(syncs.items())) + ")")
+
+    # twice through the kernels, once through the plain versions
+    reset_counters()
+    k1, k2 = _event_state(*event()), _event_state(*event())
+    kernel_counts = read_counters()
+    with plain_kernels():
+        p1 = _event_state(*event())
+    if read_counters() != kernel_counts or kernel_counts["hamming_matrix"] == 0:
+        raise AssertionError(f"launches {kernel_counts}, then {read_counters()} with the "
+                             "plain versions")
+    for label, a, b in (("run to run", k1, k2), ("kernel vs plain", k1, p1)):
+        differ = [f for f in a[1] if not torch.equal(a[1][f], b[1][f])]
+        if differ or a[0] != b[0]:
+            raise AssertionError(f"loop event {label}: fields {differ}, {a[0]} vs {b[0]}")
+    log("loop", "the event twice through the kernels and once through the plain versions: "
+        "info and every map field identical")
+    return counts, ratio_counts
+
 
 def _loop_equal(a, b):
     """Two loop runs' (map, outputs): the fields that differ."""
@@ -1313,7 +1564,8 @@ def main() -> int:
     timed("sequence", phase_sequence, device)
     timed("kp_moments", phase_kp_moments, device)
     paths["init"] = timed("init", phase_init, device)
-    paths["tracker"] = timed("tracker", phase_tracker, device)
+    paths["tracker"], paths["tracker_rescue"] = timed("tracker", phase_tracker, device)
+    paths["loop"], paths["loop_ratio"] = timed("loop", phase_loop, device)
     paths["device_loop"] = timed("device_loop", phase_device_loop, device, loop_entry)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "orb_slam_tracking_tpu"))
@@ -1329,6 +1581,9 @@ def main() -> int:
         on_loop = PER_FRAME[k["name"]] + PER_LOOP_INSERT.get(k["name"], 0) > 0
         if on_loop and k["launches_by_path"]["device_loop"] == 0:
             raise AssertionError(f"{k['name']} was not launched on the device loop")
+        on_bow = PER_BOW_PATH.get(k["name"], ())
+        if any(k["launches_by_path"][p] == 0 for p in on_bow):
+            raise AssertionError(f"{k['name']} was not launched on each of {on_bow}")
     log("done", f"every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": results}))
     print(smi)

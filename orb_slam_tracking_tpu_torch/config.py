@@ -140,9 +140,11 @@ class TrackerConfig:
     rounds, the map capacities, local BA, the map lifecycle (covisibility
     triangulation, fusion, point and keyframe culling) and relocalization.
 
-    The port's ``Tracker`` does not implement BoW (``use_bow``) or loop
-    closing (``use_loop_closing``) yet and raises when either is on; their
-    defaults stay ``True`` so the two classes stay field-equal. Local BA
+    BoW (``use_bow``, ``vocab_path``; ``bow_branching`` and ``bow_depth``
+    size the one-frame vocabulary trained when no artifact is found) and
+    loop closing (``use_loop_closing``, the ``loop_*`` and
+    ``pose_graph_iterations`` fields) are on by default, as in the JAX
+    package; the device mapping loop runs with both off. Local BA
     always takes the scatter formulation (``ba_segment_mode`` "auto" or
     "scatter"); ``lost_recovery_radius_scale`` is read by the device
     mapping loop (``slam/device_mapping.py``, its LOST-recovery tier), as
@@ -161,7 +163,7 @@ class TrackerConfig:
     # map capacities (static shapes)
     max_keyframes: int = 64
     max_map_points: int = 8192
-    # bag-of-words place recognition (a later slice of the port)
+    # bag-of-words place recognition
     use_bow: bool = True
     bow_branching: int = 8
     bow_depth: int = 3
@@ -181,7 +183,7 @@ class TrackerConfig:
     cull_min_visible: int = 8
     kf_redundancy_frac: float = 0.9
     reloc_bow_candidates: int = 5
-    # loop closing (a later slice of the port)
+    # loop closing
     use_loop_closing: bool = True
     loop_min_frame_gap: int = 60
     loop_consistency_th: int = 3

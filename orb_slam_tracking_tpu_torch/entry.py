@@ -11,9 +11,11 @@ trajectory, extracted at ``init_orb`` of 1000 features (2000 keypoints,
 capacity 2048), with 200 RANSAC hypotheses per model.
 
 ``tracker_entry`` is the sequence tracker at the JAX package's tracking
-demo point (``examples/demo_tracking.py``): 640x480, 1000 features,
-a 2048-point / 16-keyframe map with an 8-keyframe BA window, 40 rendered
-frames of the 900-point corner field on the strafe trajectory.
+demo point (``examples/demo_tracking.py``), its configuration exactly:
+640x480, 1000 features, a 2048-point / 16-keyframe map with an 8-keyframe
+BA window, every other field at its default (BoW with the bundled
+vocabulary, loop closing), 40 rendered frames of the 900-point corner
+field on the strafe trajectory.
 
 ``device_loop_entry`` is the device-side mapping loop at the JAX
 package's sequence-throughput recipe (``scripts/tpu_seq_fps.py``, the
@@ -119,12 +121,10 @@ def init_entry(device: torch.device | str = DEFAULT_DEVICE,
     return InitEntry(forward, imgs, R21, t21)
 
 
-# the tracking demo's configuration, without the parts the port has not
-# ported yet (BoW and loop closing)
+# the tracking demo's configuration
 TRACKER_CONFIG = SystemConfig(
     camera=ENTRY_CAMERA, orb=OrbConfig(n_features=1000),
-    tracker=TrackerConfig(max_map_points=2048, max_keyframes=16, ba_window=8,
-                          use_bow=False, use_loop_closing=False))
+    tracker=TrackerConfig(max_map_points=2048, max_keyframes=16, ba_window=8))
 TRACKER_FIELD_POINTS = 900
 TRACKER_FRAMES = 40
 
@@ -148,7 +148,8 @@ def tracker_entry(device: torch.device | str = DEFAULT_DEVICE,
     return TrackerEntry(Tracker(TRACKER_CONFIG, device=device), frames, poses)
 
 
-# scripts/tpu_seq_fps.py's recipe, unchanged
+# scripts/tpu_seq_fps.py's recipe, unchanged (BoW and loop closing off, as
+# there)
 DEVICE_LOOP_CONFIG = SystemConfig(
     camera=ENTRY_CAMERA, orb=OrbConfig(n_features=1000),
     tracker=TrackerConfig(max_map_points=8192, max_keyframes=24, ba_window=8,

@@ -26,6 +26,11 @@ resolution and the rotation histogram of the initialization matcher.
 ``match_descriptors`` (the ``SearchByBoW`` role without a vocabulary):
 window-free best + ratio + mutual, through ``hamming_gated_min`` with
 every gate open.
+
+``match_descriptors_bow`` (``SearchByBoW`` itself): the same, but a pair
+is compared only under the same vocabulary direct-index node. Its pairs
+come from the all-pairs ``hamming_matrix`` kernel and the node gate is
+applied to the matrix, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from ..config import MatcherConfig
 from .hamming import BIG, hamming_gated_min, hamming_matrix
 
 __all__ = ["MatchResult", "search_for_initialization", "search_for_triangulation",
-           "match_descriptors", "compact_matches"]
+           "match_descriptors", "match_descriptors_bow", "compact_matches"]
 
 _SENTINEL = torch.iinfo(torch.int32).max
 _INT_MIN = torch.iinfo(torch.int32).min
@@ -225,6 +230,26 @@ def match_descriptors(desc1: torch.Tensor, valid1: torch.Tensor,
     best, best_j, second = hamming_gated_min(
         desc1, desc2, xy[:n1], r[:n1], valid1, lo, hi, valid1,
         xy[:n2], r[:n2], octave[:n2], valid2)
+    accept = (best <= th) & (best.float() < ratio * second.float())
+    keep = _mutual(accept[None], best[None], best_j[None], n2)[0]
+    return torch.where(keep, best_j, -1)
+
+
+def match_descriptors_bow(desc1: torch.Tensor, valid1: torch.Tensor, node1: torch.Tensor,
+                          desc2: torch.Tensor, valid2: torch.Tensor, node2: torch.Tensor,
+                          ratio: float = 0.75, th: int = 50) -> torch.Tensor:
+    """``match_descriptors`` with best and second best confined to pairs
+    under the same direct-index node (``node1 [N1]``, ``node2 [N2]``, from
+    ``bow.vocabulary.direct_index_nodes``): the ratio test inside one
+    vocabulary cell. -> matches12 [N1] int32 (-1 = none)."""
+    n2 = desc2.shape[0]
+    D = hamming_matrix(desc1, desc2)
+    elig = valid1[:, None] & valid2[None, :] & (node1[:, None] == node2[None, :])
+    Dm = torch.where(elig, D, BIG)
+    best, best_j = Dm.min(dim=1)  # first index on ties, as jnp.argmin
+    cols = torch.arange(n2, device=D.device)
+    second = torch.where(cols == best_j[:, None], BIG, Dm).amin(dim=1)
+    best_j = best_j.to(torch.int32)
     accept = (best <= th) & (best.float() < ratio * second.float())
     keep = _mutual(accept[None], best[None], best_j[None], n2)[0]
     return torch.where(keep, best_j, -1)

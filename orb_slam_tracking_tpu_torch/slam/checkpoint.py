@@ -5,15 +5,21 @@ JAX package.
 
 The map's fields are stored as ``map_<field>`` with the JAX package's
 dtypes (descriptor words as uint32), beside the pose, velocity,
-bookkeeping and trajectory. The port has no BoW yet: a checkpoint that
-carries a vocabulary (``vocab_*``) or a keyframe database (``kfdb_*``)
-raises ``NotImplementedError``.
+bookkeeping and trajectory; with BoW on, the vocabulary (``vocab_k``,
+``vocab_depth``, ``vocab_word_weight``, ``vocab_level_<i>`` uint32) and the
+keyframe database (``kfdb_bow``, ``kfdb_valid``). The loop closer's state
+is not stored: a resumed tracker makes a new one at its next insert, as the
+JAX package's does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
+from ..bow.database import KeyframeDatabase
+from ..bow.vocabulary import vocabulary_from_numpy
 from ..convert import slam_map_from_numpy, slam_map_to_numpy
 from .tracker import TrackState, Tracker
 
@@ -23,8 +29,18 @@ _FORMAT_VERSION = 4  # v4: per-point viewing statistics (normal/dmin/dmax)
 
 
 def save_tracker(tracker: Tracker, path: str) -> None:
-    """Write the map, pose, velocity, trajectory and bookkeeping."""
+    """Write the map, pose, velocity, trajectory and bookkeeping, and the
+    vocabulary and keyframe database where the tracker has them."""
     data = {f"map_{k}": v for k, v in slam_map_to_numpy(tracker.map).items()}
+    v = tracker.vocab
+    if v is not None:
+        data.update(vocab_k=np.int64(v.k), vocab_depth=np.int64(v.depth),
+                    vocab_word_weight=v.word_weight.cpu().numpy(),
+                    **{f"vocab_level_{i}": d.cpu().numpy().view(np.uint32)
+                       for i, d in enumerate(v.node_desc)})
+    if tracker.kf_db is not None:
+        data.update(kfdb_bow=tracker.kf_db.bow.cpu().numpy(),
+                    kfdb_valid=tracker.kf_db.valid.cpu().numpy())
     traj = tracker.trajectory
     data.update(
         version=np.int32(_FORMAT_VERSION),
@@ -52,11 +68,6 @@ def load_tracker(tracker: Tracker, path: str) -> Tracker:
     version = int(z["version"])
     if version != _FORMAT_VERSION:
         raise ValueError(f"unsupported checkpoint version {version}")
-    bow = sorted(k for k in z.files if k.startswith(("vocab_", "kfdb_")))
-    if bow:
-        raise NotImplementedError(
-            f"the checkpoint carries BoW state ({', '.join(bow[:3])}, ...); BoW comes "
-            "with a later slice of the port")
     tracker.map = slam_map_from_numpy(
         {k[len("map_"):]: z[k] for k in z.files if k.startswith("map_")},
         device=tracker.device)
@@ -75,6 +86,18 @@ def load_tracker(tracker: Tracker, path: str) -> Tracker:
     tracker.trajectory = [
         (int(f), float(ts), R, t)
         for f, ts, R, t in zip(z["traj_frame_id"], z["traj_ts"], z["traj_R"], z["traj_t"])]
+    dev = tracker.device
+    tracker.vocab = None
+    tracker.kf_db = None
+    if "vocab_k" in z.files:
+        depth = int(z["vocab_depth"])
+        tracker.vocab = vocabulary_from_numpy(
+            [z[f"vocab_level_{i}"] for i in range(depth)], z["vocab_word_weight"],
+            int(z["vocab_k"]), depth, dev)
+    if "kfdb_bow" in z.files:
+        tracker.kf_db = KeyframeDatabase(
+            bow=torch.tensor(z["kfdb_bow"].astype(np.float32), device=dev),
+            valid=torch.tensor(z["kfdb_valid"].astype(bool), device=dev))
     if tracker.state == TrackState.INITIALIZING:
         # the reference frame is not stored; seeding restarts
         tracker.state = TrackState.NOT_INITIALIZED

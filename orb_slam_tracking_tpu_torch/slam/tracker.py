@@ -9,29 +9,39 @@ reference's unfinished ``Tracking`` class, completed.
   (``TrackingStep``; a 2x-radius retry below 20 matches), the
   visible/found tallies, and the keyframe policy. A keyframe insert runs
   covisibility triangulation with fusion, point and keyframe culling,
-  slot eviction, local BA and the viewing statistics; when the projection
-  match fails, the newest keyframe is matched by descriptor before LOST;
-- LOST -> map-wide relocalization: descriptor matching of every map
-  point, RANSAC PnP, pose LM, a tight re-match and LM again.
+  slot eviction, local BA, the viewing statistics, the keyframe's BoW
+  vector into the keyframe database and loop closing
+  (``slam/loop_closing.py``); when the projection match fails, the newest
+  keyframe is matched by descriptor (under the vocabulary's direct-index
+  nodes) before LOST;
+- LOST -> relocalization: BoW place recognition restricts the search to
+  the points of the best-scoring keyframes, then descriptor matching of
+  those points, RANSAC PnP, pose LM, a tight re-match and LM again.
 
 Control flow lives on the host and reads scalars there, as the JAX
 package's does; every numeric stage runs on the tracker's device. The
 random draws of initialization and relocalization come from one method,
 ``_uniforms``, on a ``torch.Generator`` seeded with 0.
 
-BoW (reference-keyframe matching restricted to vocabulary nodes, BoW
-relocalization) and loop closing are not ported yet: ``use_bow`` and
-``use_loop_closing`` raise ``NotImplementedError``.
+With ``use_bow`` the vocabulary is loaded at map initialization (the
+``vocab_path`` artifact; ``"bundled"`` reads the JAX package's
+``orb_slam_tracking_tpu/data/orbvoc_synth_k10_L5.npz``, else ``_L4``, as
+a data file; without one it is trained on the init frame) and the keyframe
+database lives on the tracker's device. Loop closing needs BoW; its
+``LoopCloser`` is made at the first insert.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..bow.database import add_keyframe, empty_database, query, remove_keyframe
+from ..bow.vocabulary import build_vocabulary, direct_index_nodes, load_vocabulary, transform
 from ..config import SystemConfig
 from ..device import DEFAULT_DEVICE, full_f32, resolve_device
 from ..geometry import camera
@@ -44,6 +54,7 @@ from ..ops.hamming import popcount
 from ..ops.matcher import (
     compact_matches,
     match_descriptors,
+    match_descriptors_bow,
     search_for_initialization,
     search_for_triangulation,
 )
@@ -52,12 +63,18 @@ from ..optim.ba import bundle_adjust
 from ..optim.pose_opt import optimize_pose
 from ..types import Keypoints
 from .fused_step import TrackingStep
+from .loop_closing import LoopCloser
 from .map import SlamMap, apply_ba_result, empty_map, free_slots, update_normal_and_depth
 
 __all__ = ["Tracker", "TrackState"]
 
 # RANSAC hypotheses of a relocalization (as the JAX tracker draws)
 RELOC_HYPOTHESES = 4096
+# the bundled vocabularies, in order of preference (the 100k-word corpus
+# artifact, then the 10k one): data files of the JAX package, read by path
+BUNDLED_VOCABULARIES = tuple(
+    Path(__file__).resolve().parents[2] / "orb_slam_tracking_tpu" / "data" / name
+    for name in ("orbvoc_synth_k10_L5.npz", "orbvoc_synth_k10_L4.npz"))
 
 
 class TrackState:
@@ -268,15 +285,6 @@ class Tracker:
 
     def __init__(self, cfg: SystemConfig, device: torch.device | str = DEFAULT_DEVICE):
         tcfg = cfg.tracker
-        if tcfg.use_bow:
-            raise NotImplementedError(
-                "use_bow=True: BoW place recognition (the vocabulary, BoW "
-                "reference-keyframe matching and BoW relocalization) comes with a "
-                "later slice of the port; pass use_bow=False")
-        if tcfg.use_loop_closing:
-            raise NotImplementedError(
-                "use_loop_closing=True: loop closing comes with a later slice of "
-                "the port; pass use_loop_closing=False")
         if tcfg.ba_segment_mode not in ("auto", "scatter"):
             raise ValueError(
                 f"ba_segment_mode {tcfg.ba_segment_mode!r}: the port has the scatter "
@@ -310,6 +318,9 @@ class Tracker:
         self.last_kf_slot = -1
         self.kf_ref_inliers = 0
         self.trajectory: list = []                  # (frame_id, ts, R, t)
+        self.vocab = None                           # loaded at map init
+        self.kf_db = None                           # BoW keyframe database
+        self.loop_closer: Optional[LoopCloser] = None  # made at the first insert
 
     # ------------------------------------------------------------------
     def _uniforms(self, *shapes):
@@ -462,6 +473,10 @@ class Tracker:
                                 np.eye(3, dtype=np.float32), np.zeros(3, dtype=np.float32)))
         self._local_ba(1)
         self._refresh_viewing_stats()
+        if self.cfg.tracker.use_bow:
+            self._init_bow(kps)
+            self._bow_add(0, self.ref.kps)
+            self._bow_add(1, kps)
         self.state = TrackState.WORKING
 
     # ------------------------------------------------------------------
@@ -518,10 +533,11 @@ class Tracker:
         return out
 
     def _track_reference_keyframe(self, kps, xy_un, out: dict) -> bool:
-        """``Tracking::TrackReferenceKeyFrame`` without a vocabulary: the
-        frame's descriptors matched to the newest keyframe's point-associated
-        keypoints (ratio 0.7), then pose LM from the last pose. On success
-        the tracker is updated in place and True is returned."""
+        """``Tracking::TrackReferenceKeyFrame``: the frame's descriptors
+        matched to the newest keyframe's point-associated keypoints (ratio
+        0.7; under a vocabulary only within one direct-index node, as
+        SearchByBoW), then pose LM from the last pose. On success the tracker
+        is updated in place and True is returned."""
         if self.last_kf_slot < 0 or self.n_kf == 0:
             return False
         cfg = self.cfg
@@ -533,8 +549,17 @@ class Tracker:
                  & pt_valid[np.clip(kf_pt, 0, m.point_capacity - 1)])
         if int(v_ref.sum()) < 15:
             return False
-        mnp = match_descriptors(m.kf_kp_desc[slot], self._t(v_ref), kps.desc, kps.valid,
-                                ratio=0.7).cpu().numpy()
+        v_ref_t = self._t(v_ref)
+        if self.vocab is not None:
+            w1, _ = transform(self.vocab, m.kf_kp_desc[slot], v_ref_t)
+            w2, _ = transform(self.vocab, kps.desc, kps.valid)
+            m12 = match_descriptors_bow(
+                m.kf_kp_desc[slot], v_ref_t, direct_index_nodes(self.vocab, w1),
+                kps.desc, kps.valid, direct_index_nodes(self.vocab, w2), ratio=0.7)
+        else:
+            m12 = match_descriptors(m.kf_kp_desc[slot], v_ref_t, kps.desc, kps.valid,
+                                    ratio=0.7)
+        mnp = m12.cpu().numpy()
         sel = np.where(mnp >= 0)[0]
         if len(sel) < 15:
             return False
@@ -620,6 +645,20 @@ class Tracker:
         out["culled_kfs"] = self._cull_keyframes()
         out.update(self._local_ba(slot))
         self._refresh_viewing_stats()
+        self._bow_add(slot, kps)
+        if cfg.tracker.use_loop_closing and self.kf_db is not None:
+            if self.loop_closer is None:
+                self.loop_closer = LoopCloser(cfg, self.K, vocab=self.vocab, device=self.device)
+            self.map, loop_info = self.loop_closer.on_keyframe(self.map, self.kf_db, slot)
+            out.update(loop_info)
+            if str(loop_info.get("loop", "")).startswith("closed"):
+                # the live pose follows the corrected keyframe; the motion
+                # model restarts (CorrectLoop)
+                self.R = self.map.kf_R[slot].cpu().numpy().copy()
+                self.t = self.map.kf_t[slot].cpu().numpy().copy()
+                self.vel_R = np.eye(3, dtype=np.float32)
+                self.vel_t = np.zeros(3, dtype=np.float32)
+                self._refresh_viewing_stats()
         self.n_kf = int(self.map.kf_valid.sum())
         self.frames_since_kf = 0
         self.kf_ref_inliers = int(n_add) + new_n
@@ -671,7 +710,32 @@ class Tracker:
         return hit / np.maximum(tot, 1.0)
 
     def _remove_keyframe(self, slot: int) -> None:
+        """Invalidate keyframe ``slot`` and drop it from the BoW database."""
         self.map = remove_kf(self.map, slot)
+        if self.kf_db is not None:
+            self.kf_db = remove_keyframe(self.kf_db, slot)
+
+    def _init_bow(self, kps):
+        """The vocabulary (``vocab_path``; "bundled": ``BUNDLED_VOCABULARIES``,
+        the first present; none: trained on this frame's descriptors with
+        seed 0) and an empty keyframe database on the tracker's device."""
+        tcfg = self.cfg.tracker
+        path = tcfg.vocab_path
+        if path == "bundled":
+            path = next((p for p in BUNDLED_VOCABULARIES if p.exists()), None)
+        if path is not None:
+            self.vocab = load_vocabulary(path, self.device)
+        else:
+            train = kps.desc.cpu().numpy()[kps.valid.cpu().numpy()]
+            self.vocab = build_vocabulary(train, k=tcfg.bow_branching, depth=tcfg.bow_depth,
+                                          seed=0, device=self.device)
+        self.kf_db = empty_database(tcfg.max_keyframes, self.vocab.n_words, self.device)
+
+    def _bow_add(self, slot: int, kps):
+        if self.vocab is None:
+            return
+        _, bow = transform(self.vocab, kps.desc, kps.valid)
+        self.kf_db = add_keyframe(self.kf_db, slot, bow)
 
     def _cull_points(self) -> int:
         """MapPointCulling: points short of ``cull_min_obs`` observations
@@ -885,14 +949,29 @@ class Tracker:
 
     # ------------------------------------------------------------------
     def _track_lost(self, kps, xy_un) -> dict:
-        """Map-wide relocalization: every valid map point finds its best
-        frame keypoint (no spatial window, loose gates), RANSAC PnP on the
-        2D-3D matches, pose LM on its inliers, a tight re-match from that
-        pose and a final LM."""
+        """Relocalization: under a vocabulary, the frame's BoW vector scores
+        every keyframe and the search is restricted to the points of the
+        ``reloc_bow_candidates`` best (``np.argsort(-scores)``, as JAX's);
+        every candidate point finds its best frame keypoint (no spatial
+        window, loose gates), RANSAC PnP on the 2D-3D matches, pose LM on
+        its inliers, a tight re-match from that pose and a final LM."""
         cfg = self.cfg
         mp = self.map
         reloc_kf = -1
-        mnp = match_descriptors(mp.desc, mp.pt_valid, kps.desc, kps.valid,
+        cand_points = mp.pt_valid
+        if self.vocab is not None and self.n_kf > 0:
+            _, bow = transform(self.vocab, kps.desc, kps.valid)
+            scores = query(self.kf_db, bow).cpu().numpy()
+            reloc_kf = int(np.argmax(scores))
+            k = min(cfg.tracker.reloc_bow_candidates, int(np.isfinite(scores).sum()))
+            if k > 0:
+                cands = np.argsort(-scores)[:k]
+                cands = cands[np.isfinite(scores[cands])]
+                assoc = mp.kf_kp_pt.cpu().numpy()[cands]
+                allowed = np.zeros(mp.point_capacity, bool)
+                allowed[assoc[assoc >= 0]] = True
+                cand_points = mp.pt_valid & self._t(allowed)
+        mnp = match_descriptors(mp.desc, cand_points, kps.desc, kps.valid,
                                 ratio=0.9, th=cfg.matcher.th_high).cpu().numpy()
         pt_sel = np.where(mnp >= 0)[0]
         if len(pt_sel) < 12:

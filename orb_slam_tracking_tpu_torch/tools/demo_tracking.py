@@ -5,8 +5,9 @@
 The port's counterpart of the JAX package's ``examples/demo_tracking.py``
 on its synthetic sequence (``entry.tracker_entry``: 640x480, 1000
 features, the 900-point corner field on the strafe trajectory, BoW and
-loop closing off): one line per frame (state after the frame, keypoints,
-pose inliers, and the keyframe, init, LOST and relocalization events),
+loop closing on, as the demo's configuration): one line per frame (state
+after the frame, keypoints, pose inliers, and the keyframe with its loop
+closer's verdict, init, LOST and relocalization events),
 then the frames tracked, the keyframes and map points, and the ATE after
 a Sim(3) alignment to ground truth. Exits 1 when that ATE is 0.05 or more.
 Runs on the card unless ``--cpu`` is given.
@@ -30,7 +31,8 @@ def frame_line(i: int, m: dict) -> str:
     tag = ""
     if "kf" in m:
         tag = (f" [KF obs={m.get('kf_obs')} new={m.get('kf_new_points')} "
-               f"BA {m.get('ba_cost0', 0):.0f}->{m.get('ba_cost', 0):.0f}]")
+               f"BA {m.get('ba_cost0', 0):.0f}->{m.get('ba_cost', 0):.0f}"
+               + (f" loop: {m['loop']}]" if "loop" in m else "]"))
     if "init" in m:
         tag = f" [init: {m['init']}]"
     if "lost" in m:

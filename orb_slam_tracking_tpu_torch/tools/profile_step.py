@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import statistics
 import time
@@ -453,12 +454,24 @@ def profile_tracker(device, n_frames: int = 40) -> dict:
 _WRAPPED = ("track", "_insert_keyframe", "_local_ba")
 
 
+def _closer_copy(closer):
+    """A copy of a loop closer whose consistency groups are its own (its
+    other state is replaced, never written in place)."""
+    if closer is None:
+        return None
+    out = copy.copy(closer)
+    out._groups = list(closer._groups)
+    return out
+
+
 def snapshot(tracker) -> dict:
-    """The tracker's state: its map is replaced, never written in place,
-    so holding the attributes holds the state (the trajectory list is
-    copied; method wrappers set on the instance are left out)."""
+    """The tracker's state: its map and keyframe database are replaced,
+    never written in place, so holding the attributes holds the state (the
+    trajectory list and the loop closer are copied; method wrappers set on
+    the instance are left out)."""
     state = {k: v for k, v in vars(tracker).items() if k not in _WRAPPED}
     state["trajectory"] = list(tracker.trajectory)
+    state["loop_closer"] = _closer_copy(tracker.loop_closer)
     return state
 
 
@@ -466,6 +479,7 @@ def restore(tracker, state: dict) -> None:
     """Put back a ``snapshot``."""
     vars(tracker).update(state)
     tracker.trajectory = list(state["trajectory"])
+    tracker.loop_closer = _closer_copy(state["loop_closer"])
 
 
 def state_before(tracker, name: str, run):

@@ -242,8 +242,8 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port loads without jax and without the JAX
-    package, the two-view initialization slice's and the device loop's
-    among them."""
+    package, the two-view initialization slice's, the device loop's and the
+    BoW and loop-closing slice's among them."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import orb_slam_tracking_tpu_torch as p\n"
@@ -253,7 +253,9 @@ def test_port_imports_no_jax():
         "    'entry', 'ops.matcher', 'ops.orientation', 'slam.two_view_init',\n"
         "    'geometry.sampling', 'geometry.triangulate', 'geometry.homography',\n"
         "    'geometry.fundamental', 'geometry.twoview', 'slam.device_mapping',\n"
-        "    'optim.segment', 'tools.seq_fps', 'tools.profile_step')}\n"
+        "    'optim.segment', 'tools.seq_fps', 'tools.profile_step', 'bow.vocabulary',\n"
+        "    'bow.database', 'geometry.sim3', 'optim.pose_graph', 'slam.loop_closing',\n"
+        "    'utils.loop_world')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'orb_slam_tracking_tpu'))\n"

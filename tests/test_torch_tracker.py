@@ -2,8 +2,9 @@
 
 The tracking demo's recipe (640x480, 1000 features, the 900-point corner
 field of ``default_rng(0)`` on the 40-frame strafe, a 2048-point /
-16-keyframe map, BA window 8, BoW and loop closing off) is tracked by the
-JAX ``Tracker`` until it is WORKING; its checkpoint is resumed by the
+16-keyframe map, BA window 8; here with BoW and loop closing off, which
+tests/test_torch_tracker_bow.py takes on) is tracked by the JAX
+``Tracker`` until it is WORKING; its checkpoint is resumed by the
 port's, and both track on through keyframe inserts with local BA. The
 relocalization recipe of ``tests/test_tracking.py`` runs the same way from
 a checkpoint taken before the occlusion. Where the port draws random
@@ -27,7 +28,10 @@ from orb_slam_tracking_tpu_torch.slam.tracker import Tracker, TrackState
 from orb_slam_tracking_tpu_torch.utils.synthetic import (CornerField, make_trajectory,
                                                          render_frame)
 
-CFG = port_entry.TRACKER_CONFIG
+# the demo's recipe with BoW and loop closing off: the tracking and
+# mapping path alone
+CFG = dataclasses.replace(port_entry.TRACKER_CONFIG, tracker=dataclasses.replace(
+    port_entry.TRACKER_CONFIG.tracker, use_bow=False, use_loop_closing=False))
 RESUMED_FRAMES = 5  # tracked by both after the JAX tracker's checkpoint
 
 
@@ -198,30 +202,61 @@ def test_relocalization_matches_jax(relocalized):
     assert _rot_err_deg(r["port"].R, r["poses"][25][0]) < 4.0
 
 
-def test_tracker_rejects_what_is_not_ported(resumed, tmp_path):
-    """BoW and loop closing, and a checkpoint that carries BoW state."""
+def test_tracker_takes_bow_and_loop_closing(resumed, tmp_path):
+    """The two configurations once refused (BoW on, loop closing on) build a
+    Tracker; the resumed checkpoint with BoW state added (a vocabulary and
+    a keyframe database, written by the JAX package) round-trips JAX ->
+    port -> JAX with every array equal."""
+    from orb_slam_tracking_tpu.bow import database as jx_db
+    from orb_slam_tracking_tpu.bow import vocabulary as jx_voc
+
     tcfg = CFG.tracker
     for flag in ("use_bow", "use_loop_closing"):
         cfg = dataclasses.replace(CFG, tracker=dataclasses.replace(tcfg, **{flag: True}))
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Tracker(cfg, device="cpu")
-    z = dict(np.load(resumed["path"]))
-    for key in ("vocab_k", "kfdb_bow"):
-        path = str(tmp_path / f"{key}.npz")
-        np.savez(path, **z, **{key: np.int64(1)})
-        with pytest.raises(NotImplementedError, match="BoW"):
-            checkpoint.load_tracker(Tracker(CFG, device="cpu"), path)
+        assert Tracker(cfg, device="cpu").kf_db is None
+    bow_cfg = dataclasses.replace(CFG, tracker=dataclasses.replace(tcfg, use_bow=True))
+    jx = jx_checkpoint.load_tracker(JxTracker(jx_cfg(bow_cfg)), resumed["path"])
+    desc = np.asarray(jx.map.desc)[np.asarray(jx.map.pt_valid)]
+    jx.vocab = jx_voc.build_vocabulary(desc, k=4, depth=3, seed=0)
+    jx.kf_db = jx_db.empty_database(jx.map.kf_capacity, jx.vocab.n_words)
+    for slot in np.where(np.asarray(jx.map.kf_valid))[0]:
+        _, bow = jx_voc.transform(jx.vocab, jx.map.kf_kp_desc[slot], jx.map.kf_kp_valid[slot])
+        jx.kf_db = jx_db.add_keyframe(jx.kf_db, int(slot), bow)
+    src, out = str(tmp_path / "jax_bow.npz"), str(tmp_path / "port_bow.npz")
+    jx_checkpoint.save_tracker(jx, src)
+    port = checkpoint.load_tracker(Tracker(bow_cfg, device="cpu"), src)
+    assert port.vocab.n_words == 64 and bool(port.kf_db.valid.any())
+    checkpoint.save_tracker(port, out)
+    a, b = np.load(src), np.load(out)
+    assert sorted(a.files) == sorted(b.files) and "kfdb_bow" in a.files
+    for k in a.files:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    back = jx_checkpoint.load_tracker(JxTracker(jx_cfg(bow_cfg)), out)
+    for x, y in zip(back.vocab.node_desc, jx.vocab.node_desc):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    np.testing.assert_array_equal(np.asarray(back.kf_db.bow), np.asarray(jx.kf_db.bow))
+    np.testing.assert_array_equal(np.asarray(back.kf_db.valid), np.asarray(jx.kf_db.valid))
 
 
 def test_tracker_entry_points_default_to_the_card(monkeypatch):
     """Tracker and tracker_entry raise without a card unless given
-    device="cpu"; tracker_entry("cpu") is the demo's operating point."""
+    device="cpu"; tracker_entry("cpu") is the demo's operating point, its
+    configuration the demo's exactly (BoW and loop closing on)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Tracker(CFG)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_entry.tracker_entry()
     tr, frames, poses = port_entry.tracker_entry("cpu", n_frames=2)
+    demo = jx_config.SystemConfig(
+        camera=jx_config.CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                                      height=480),
+        orb=jx_config.OrbConfig(n_features=1000),
+        tracker=jx_config.TrackerConfig(max_map_points=2048, max_keyframes=16, ba_window=8))
+    assert dataclasses.asdict(tr.cfg.tracker) == dataclasses.asdict(demo.tracker)
+    assert tr.cfg.tracker.use_bow and tr.cfg.tracker.use_loop_closing
+    assert jx_cfg(tr.cfg) == demo
     assert tr.map.pts.device.type == "cpu" and tr.K.device.type == "cpu"
     assert len(frames) == len(poses) == 2 and frames[0].shape == (480, 640)
     assert tr.map.point_capacity == 2048 and tr.map.kf_capacity == 16

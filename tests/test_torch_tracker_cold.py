@@ -1,7 +1,7 @@
 """The port's tracker from a cold start beside the JAX package's, on the CPU.
 
 Both start with no map on the first 12 frames of a 20-frame strafe of the
-tracking demo's scene (the same path as the 40-frame one in half the
+tracking demo's scene, BoW and loop closing off (the same path as the 40-frame one in half the
 frames, so the baseline that initialization needs comes after a few
 frames). The JAX tracker's own draws are handed to the port's
 ``_uniforms``, so both see the same RANSAC hypotheses; the port runs its
@@ -10,10 +10,9 @@ plain kernel versions (CPU tensors)."""
 import jax
 
 from orb_slam_tracking_tpu.slam.tracker import Tracker as JxTracker
-from orb_slam_tracking_tpu_torch.entry import TRACKER_CONFIG as CFG
 from orb_slam_tracking_tpu_torch.slam.tracker import Tracker, TrackState
 from orb_slam_tracking_tpu_torch.tools.demo_tracking import trajectory_ate
-from test_torch_tracker import JaxDraws, _frames, jx_cfg
+from test_torch_tracker import CFG, JaxDraws, _frames, jx_cfg
 
 FRAMES, TRAJECTORY = 12, 20
 

@@ -1,5 +1,5 @@
 """Where the port's tracker parts from the JAX package's on the tracking
-demo's 40 frames, and why.
+demo's 40 frames (BoW and loop closing off), and why.
 
 With the JAX tracker's own draws handed to the port (``JaxDraws``), both
 initialize on frame 18 and take the same events, keyframe for keyframe,
@@ -19,10 +19,9 @@ import torch
 
 from orb_slam_tracking_tpu.slam import checkpoint as jx_checkpoint
 from orb_slam_tracking_tpu.slam.tracker import Tracker as JxTracker
-from orb_slam_tracking_tpu_torch.entry import TRACKER_CONFIG as CFG
 from orb_slam_tracking_tpu_torch.slam import checkpoint
 from orb_slam_tracking_tpu_torch.slam.tracker import Tracker
-from test_torch_tracker import _frames, jx_cfg
+from test_torch_tracker import CFG, _frames, jx_cfg
 
 PART = 32  # the first frame whose events differ when both run from frame 0
 
