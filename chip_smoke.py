@@ -75,12 +75,30 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
    through the kernels and through the plain versions, identical; and
    the blackout recipe of ``tests/test_device_mapping.py`` (6 blank
    frames, re-acquired in the loop, the end rotation error within 0.5 deg
-   of the clean run's).
+   of the clean run's);
+11. the per-level extractor (``OrbConfig(n_features=1000,
+   use_atlas=False)``) on a rendered 640x480 frame, with FAST and with
+   Harris ranking, without and with a half-image detection mask: through
+   the kernels and through the plain versions, identical; identical to the
+   atlas path; under the mask every keypoint in the unmasked half, within
+   one coarsest-level pixel; the standalone kernels launched once a level
+   (fast_score, moments_at and brief_words 8 each an extraction); the
+   card's extraction against the plain path on the CPU; host and device ms
+   per extraction on both paths;
+12. a sequence read from files: the first frames of the 300-frame ``loop``
+   written by ``tools/make_synthetic_tum.py`` into a temporary directory,
+   run through ``tools/eval_tum.py``'s ``evaluate`` with the directory's
+   ``Settings.yaml`` (640x480, 1000 features, the default tracker: 8192
+   points, 64 keyframes, BoW with the bundled vocabulary, loop closing) by
+   the host tracker with FAST and with Harris ranking, and by the device
+   loop: per run the init frame and model, LOST frames, keyframes, ATE,
+   RPE, frames/s, the frame decoder and the launches; 0 LOST and ATE
+   < 5 cm (BASELINE.json's intent).
 
 The line before the last is ``nvidia-smi``'s name and power limit, the one
 before it a JSON object of per-kernel results (launches counted on each
 path: tracking, init, tracker, tracker_rescue, loop_ratio, loop,
-device_loop); the
+device_loop, per_level, tum, tum_harris, tum_device_loop); the
 last line is ``{"ok": true, "device": {...}}``. There is no CPU
 path: without a CUDA device the script raises.
 """
@@ -88,10 +106,12 @@ path: without a CUDA device the script raises.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -184,25 +204,27 @@ def import_port() -> None:
 def plain_kernels():
     """Route the main paths' kernel calls to the plain versions."""
     from orb_slam_tracking_tpu_torch.ops import (
-        atlas, describe, fast, hamming, matcher, proj_matcher)
+        atlas, brief, describe, extractor, fast, hamming, matcher, orientation, proj_matcher)
     from orb_slam_tracking_tpu_torch.slam import device_mapping, loop_closing
 
-    saved = (atlas.fast_score, atlas.orient_describe, proj_matcher.hamming_gated_min,
-             matcher.hamming_gated_min, matcher.hamming_matrix, device_mapping.hamming_matrix,
-             loop_closing.hamming_matrix)
-    atlas.fast_score = fast.fast_score_reference
-    atlas.orient_describe = describe.orient_describe_reference
-    proj_matcher.hamming_gated_min = hamming.hamming_gated_min_reference
-    matcher.hamming_gated_min = hamming.hamming_gated_min_reference
-    matcher.hamming_matrix = hamming.hamming_matrix_reference
-    device_mapping.hamming_matrix = hamming.hamming_matrix_reference
-    loop_closing.hamming_matrix = hamming.hamming_matrix_reference
+    plain = ((atlas, "fast_score", fast.fast_score_reference),
+             (atlas, "orient_describe", describe.orient_describe_reference),
+             (extractor, "fast_score", fast.fast_score_reference),
+             (extractor, "moments_at", orientation.moments_at_reference),
+             (extractor, "brief_words", brief.brief_words_reference),
+             (proj_matcher, "hamming_gated_min", hamming.hamming_gated_min_reference),
+             (matcher, "hamming_gated_min", hamming.hamming_gated_min_reference),
+             (matcher, "hamming_matrix", hamming.hamming_matrix_reference),
+             (device_mapping, "hamming_matrix", hamming.hamming_matrix_reference),
+             (loop_closing, "hamming_matrix", hamming.hamming_matrix_reference))
+    saved = [(module, name, getattr(module, name)) for module, name, _ in plain]
+    for module, name, fn in plain:
+        setattr(module, name, fn)
     try:
         yield
     finally:
-        (atlas.fast_score, atlas.orient_describe, proj_matcher.hamming_gated_min,
-         matcher.hamming_gated_min, matcher.hamming_matrix, device_mapping.hamming_matrix,
-         loop_closing.hamming_matrix) = saved
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 @contextlib.contextmanager
@@ -339,15 +361,17 @@ def phase_kernels(device, loop_entry):
     # the words; one compare per pair
     blurred = torch.round(gaussian_blur(canvas, consts.gauss)).contiguous()
 
+    def b2_on(img, sy, sx):
+        n = sy.shape[0]
+        work = (4.0 * (n_distinct(sy.long() * img.shape[1] + sx) + 2 * sy.numel() + 8 * n),
+                256.0 * n)
+        return check("brief_words", lambda: brief.brief_words(img, sy, sx),
+                     lambda: brief.brief_words_reference(img, sy, sx), work)
+
     def b2_at(ocfg):
         xy = place(ocfg)
         angle = torch.rand(xy.shape[0], generator=g, device=device) * 360.0
-        sy, sx = brief.brief_coords(xy, angle, consts.pattern_xy, *blurred.shape)
-        n = xy.shape[0]
-        work = (4.0 * (n_distinct(sy.long() * blurred.shape[1] + sx) + 2 * sy.numel() + 8 * n),
-                256.0 * n)
-        return check("brief_words", lambda: brief.brief_words(blurred, sy, sx),
-                     lambda: brief.brief_words_reference(blurred, sy, sx), work)
+        return b2_on(blurred, *brief.brief_coords(xy, angle, consts.pattern_xy, *blurred.shape))
 
     b2 = b2_at(cfg)
     b2["init_shape"] = b2_at(init_cfg)
@@ -511,31 +535,49 @@ def phase_kernels(device, loop_entry):
         w[1, 0, dy + r, dx + r] = dy
     m10, m01 = orientation.moment_maps(canvas, umax)
 
-    def b4_at(ocfg):
-        xy = place(ocfg).long()
-        yc = (xy[:, 1] + EDGE_THRESHOLD).to(torch.int32)
-        xc = (xy[:, 0] + EDGE_THRESHOLD).to(torch.int32)
+    def b4_on(img, yc, xc, dense_maps):
         n = yc.shape[0]
-        pix = (yc.long()[:, None] + dyx[:, 0]) * canvas.shape[1] + xc.long()[:, None] + dyx[:, 1]
+        pix = (yc.long()[:, None] + dyx[:, 0]) * img.shape[1] + xc.long()[:, None] + dyx[:, 1]
         work = (4.0 * (n_distinct(pix) + 4 * n), float(ops_per_kp * n))
         yl, xl = yc.long() - r, xc.long() - r
 
         def conv_at():
-            out = F.conv2d(canvas[None, None], w)[0]
+            out = F.conv2d(img[None, None], w)[0]
             return out[:, yl, xl]
 
-        k = check("moments_at", lambda: orientation.moments_at(canvas, yc, xc, umax),
-                  lambda: orientation.moments_at_reference(canvas, yc, xc, umax),
+        k = check("moments_at", lambda: orientation.moments_at(img, yc, xc, umax),
+                  lambda: orientation.moments_at_reference(img, yc, xc, umax),
                   work, library=conv_at)
         yd, xd = yc.long() - EDGE_THRESHOLD, xc.long() - EDGE_THRESHOLD
-        dense = torch.stack([m10[yd, xd], m01[yd, xd]])
-        if not torch.equal(torch.stack(orientation.moments_at(canvas, yc, xc, umax)), dense):
+        dense = torch.stack([dense_maps[0][yd, xd], dense_maps[1][yd, xd]])
+        if not torch.equal(torch.stack(orientation.moments_at(img, yc, xc, umax)), dense):
             raise AssertionError("moments_at differs from the dense moment_maps at its pixels")
         log("kernels", f"moments_at equals the dense moment_maps at its {n} keypoints")
         return k
 
+    def b4_at(ocfg):
+        xy = place(ocfg).long()
+        return b4_on(canvas, (xy[:, 1] + EDGE_THRESHOLD).to(torch.int32),
+                     (xy[:, 0] + EDGE_THRESHOLD).to(torch.int32), (m10, m01))
+
     b4 = b4_at(cfg)
     b4["init_shape"] = b4_at(init_cfg)
+
+    # B2 and B4 on the per-level path, at the calls one extraction of the
+    # entry image makes on level 0 (its 271-keypoint budget at 1000
+    # features) and on level 7 (its 76), as recorded
+    from orb_slam_tracking_tpu_torch.ops import extractor
+
+    level_cfg = dataclasses.replace(cfg, use_atlas=False)
+    b2_calls, b4_calls = [], []
+    with recorded(extractor, "brief_words", b2_calls), \
+            recorded(extractor, "moments_at", b4_calls):
+        extractor.orb_extract(image, level_cfg, ExtractorConstants(480, 640, level_cfg, device))
+    for lvl in (0, level_cfg.n_levels - 1):
+        b2[f"per_level{lvl}_shape"] = b2_on(*b2_calls[lvl])
+        padded = b4_calls[lvl][0]
+        b4[f"per_level{lvl}_shape"] = b4_on(*b4_calls[lvl][:3],
+                                            orientation.moment_maps(padded, umax))
 
     # B4f at both paths' keypoints, against the plain chain (moments ->
     # angle -> rotated, rounded pattern -> rounded blur -> samples -> words):
@@ -639,6 +681,15 @@ FUSE_MATRIX = (2048, 8192)
 # one at least every 19 frames), the ATE bar of the TPU rounds' probe
 # (VERDICT.md), the blackout's end rotation error against the clean run's
 LOOP_GATES = {"lost": 0, "min_inserts": 10, "ate_m": 0.037, "blackout_deg": 0.5}
+# the per-level extractor: the standalone kernels once a level (8 levels);
+# the atlas path's two a extraction, for comparison
+PER_LEVEL_EXTRACTION = {"fast_score": 8, "moments_at": 8, "brief_words": 8}
+PER_ATLAS_EXTRACTION = {"fast_score": 1, "orient_describe": 1}
+PER_LEVEL_RUNS = 5
+# the sequence from files: the first frames of the 300-frame loop (JAX
+# initializes at frame 9), BASELINE.json's 5 cm accuracy intent
+TUM_FRAMES = 72
+TUM_ATE_M = 0.05
 
 
 def reset_counters():
@@ -1540,6 +1591,150 @@ def phase_device_loop(device, e):
     return counts
 
 
+def _keypoints_equal(a, b) -> list:
+    """The Keypoints fields in which ``a`` and ``b`` differ."""
+    return [f for f in a._fields if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def phase_per_level(device):
+    """The per-level extractor at 640x480 and 1000 features, with FAST and
+    Harris ranking, without and with a half-image mask: kernels vs plain
+    versions, per-level vs atlas, the mask's half, launches per extraction,
+    the card against the CPU plain path, host and device ms per extraction.
+    -> the launch counts of PER_LEVEL_RUNS extractions through the kernels."""
+    from orb_slam_tracking_tpu_torch.config import CameraConfig, OrbConfig
+    from orb_slam_tracking_tpu_torch.convert import keypoints_to_numpy
+    from orb_slam_tracking_tpu_torch.ops.extractor import ExtractorConstants, orb_extract
+    from orb_slam_tracking_tpu_torch.utils.synthetic import (
+        CornerField, make_trajectory, render_frame)
+
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640, height=480)
+    field = CornerField(np.random.default_rng(3), n=900)
+    frame = render_frame(field, cam, *make_trajectory(4, "strafe")[1]).astype(np.float32)
+    image = torch.tensor(frame, device=device)
+    mask = torch.zeros(480, 640, device=device)
+    mask[:, 320:] = 1.0
+    paths = {}
+    for path in ("per_level", "atlas"):
+        cfg = OrbConfig(n_features=1000, use_atlas=path == "atlas")
+        paths[path] = (cfg, ExtractorConstants(480, 640, cfg, device))
+    counts = {}
+    for score_type in ("fast", "harris"):
+        for masked in (False, True):
+            m = mask if masked else None
+            out = {}
+            for path, (cfg, consts) in paths.items():
+                c = dataclasses.replace(cfg, score_type=score_type)
+                if path == "per_level" and score_type == "fast" and not masked:
+                    orb_extract(image, c, consts, m)   # warm-up outside the count
+                    torch.cuda.synchronize()
+                    reset_counters()
+                    for _ in range(PER_LEVEL_RUNS):
+                        out[path] = orb_extract(image, c, consts, m)
+                    torch.cuda.synchronize()
+                    counts = read_counters()
+                else:
+                    reset_counters()
+                    out[path] = orb_extract(image, c, consts, m)
+                    got = read_counters()
+                    want = PER_LEVEL_EXTRACTION if path == "per_level" else PER_ATLAS_EXTRACTION
+                    if {k: v for k, v in got.items() if v} != want:
+                        raise AssertionError(f"{path} {score_type}: launches {got}, want {want}")
+                with plain_kernels():
+                    plain = orb_extract(image, c, consts, m)
+                differ = _keypoints_equal(out[path], plain)
+                if differ:
+                    raise AssertionError(f"{path} {score_type} masked={masked}: kernels vs "
+                                         f"plain differ in {differ}")
+            differ = _keypoints_equal(out["per_level"], out["atlas"])
+            if differ:
+                raise AssertionError(f"{score_type} masked={masked}: per-level vs atlas differ "
+                                     f"in {differ}")
+            kps = keypoints_to_numpy(out["per_level"])
+            n = int(kps["valid"].sum())
+            note = ""
+            if masked:
+                slack = cfg.scale_factor ** (cfg.n_levels - 1)
+                x_min = float(kps["xy"][kps["valid"], 0].min())
+                if n <= 50 or x_min < 320 - slack:
+                    raise AssertionError(f"masked: {n} keypoints, leftmost x {x_min}")
+                note = f"; leftmost x {x_min:.2f} (the mask's edge 320, slack {slack:.2f})"
+            cpu_cfg = dataclasses.replace(paths["per_level"][0], score_type=score_type)
+            cpu = keypoints_to_numpy(orb_extract(image.cpu(), cpu_cfg, None,
+                                                 None if m is None else m.cpu()))
+            valid = kps["valid"] | cpu["valid"]
+            same = ((kps["xy"] == cpu["xy"]).all(1) & (kps["valid"] == cpu["valid"])
+                    & (kps["desc"] == cpu["desc"]).all(1))[valid]
+            log("per_level", f"{score_type}, mask {'half' if masked else 'none'}: {n} "
+                "keypoints; kernels vs plain identical, per-level vs atlas identical "
+                f"(keypoints, responses, angles, descriptors){note}; vs the CPU plain path "
+                f"{int(same.sum())}/{int(valid.sum())} keypoints with their descriptors "
+                "identical")
+            # the level resizes are f32 products summed in another order on
+            # the CPU: near-ties may move (as [slice]'s check)
+            if same.mean() < 0.99:
+                raise AssertionError("the card's per-level extraction disagrees with the CPU")
+    want = {k: v * PER_LEVEL_RUNS for k, v in PER_LEVEL_EXTRACTION.items()}
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"per-level launches {counts} over {PER_LEVEL_RUNS}, want {want}")
+    times = {}
+    for path, (cfg, consts) in paths.items():
+        def run():
+            return orb_extract(image, cfg, consts)
+        times[path] = (time_ms(run, runs=KP_MOMENTS_RUNS), device_ms(run, runs=KP_MOMENTS_RUNS))
+    log("per_level", f"launches over {PER_LEVEL_RUNS} extractions {counts}; ms per extraction "
+        "(CUDA-event span / profiler device): "
+        + ", ".join(f"{p} {a:.4f} / {b:.4f}" for p, (a, b) in times.items())
+        + f" (median / mean of {KP_MOMENTS_RUNS})")
+    return counts
+
+
+def phase_tum(device, tmp):
+    """The first TUM_FRAMES frames of the 300-frame loop, written as a TUM
+    sequence and run through ``tools/eval_tum.evaluate``: the host tracker
+    with FAST and with Harris ranking, and the device loop. -> the launch
+    counts of each run, by path."""
+    from orb_slam_tracking_tpu_torch.tools.eval_tum import evaluate
+    from orb_slam_tracking_tpu_torch.tools.make_synthetic_tum import make_sequence
+
+    seq = str(Path(tmp) / "loop")
+    t0 = time.perf_counter()
+    make_sequence(seq, frames=300, mode="loop", first=TUM_FRAMES)
+    settings = str(Path(seq) / "Settings.yaml")
+    harris = str(Path(tmp) / "Settings_harris.yaml")
+    Path(harris).write_text(Path(settings).read_text() + "ORBextractor.scoreType: 0\n")
+    log("tum", f"wrote {TUM_FRAMES} frames of the 300-frame loop in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for path, yaml, loop in (("tum", settings, False), ("tum_harris", harris, False),
+                             ("tum_device_loop", settings, True)):
+        lines = []
+        reset_counters()
+        t0 = time.perf_counter()
+        res = evaluate(seq, yaml, out=str(Path(tmp) / f"{path}.txt"), device=device,
+                       device_loop=loop, log=lines.append)
+        wall = time.perf_counter() - t0
+        counts[path] = read_counters()
+        for line in lines:
+            if "init attempt" in line or "loop closing" in line or line.startswith(
+                    ("device loop", "bootstrap", "sequence throughput", "ATE", "RPE")):
+                log("tum", f"{path}: {line}")
+        log("tum", f"{path}: score type {res['config']['score_type']}, decoder "
+            f"{res['decoder']}; init frame {res['init_frame']} ({res['init_model']}, "
+            f"{res['init_attempts']} attempts); LOST frames {res['lost_frames']}; "
+            f"{res['inserts']} keyframe inserts, {res['keyframes']} keyframes and "
+            f"{res['map_points']} points at the end; ATE {res.get('ate_m', float('nan')) * 100:.4f}"
+            f" cm, RPE({res.get('rpe_delta')}) {res.get('rpe_m', float('nan')) * 100:.4f} cm / "
+            f"{res.get('rpe_deg', float('nan')):.4f} deg over {res['poses']} poses; "
+            f"{res['fps']:.3f} frames/s; {wall:.1f} s in all; launches {counts[path]}")
+        if res["rc"] != 0 or res["lost_frames"] or not res.get("ate_m", 1.0) < TUM_ATE_M:
+            raise AssertionError(f"{path}: rc {res['rc']}, LOST {res['lost_frames']}, "
+                                 f"ATE {res.get('ate_m')} (bar {TUM_ATE_M})")
+        if res["decoder"] not in ("native", "pil"):
+            raise AssertionError(f"{path}: frames read by {res['decoder']}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -1567,10 +1762,18 @@ def main() -> int:
     paths["tracker"], paths["tracker_rescue"] = timed("tracker", phase_tracker, device)
     paths["loop"], paths["loop_ratio"] = timed("loop", phase_loop, device)
     paths["device_loop"] = timed("device_loop", phase_device_loop, device, loop_entry)
+    paths["per_level"] = timed("per_level", phase_per_level, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as tmp:
+        paths.update(timed("tum", phase_tum, device, tmp))
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "orb_slam_tracking_tpu"))
     if foreign:
         raise AssertionError(f"jax or the JAX package was imported: {foreign[:5]}")
+    need = {f"orb_slam_tracking_tpu_torch.{m}" for m in (
+        "io", "io.images", "io.tum", "io.native_loader", "ops.harris", "tools.eval_tum",
+        "tools.make_synthetic_tum", "utils.metrics", "utils.synthetic")}
+    if not need <= set(sys.modules):
+        raise AssertionError(f"the port's modules were not all driven: {need - set(sys.modules)}")
     for k in results:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -1584,6 +1787,12 @@ def main() -> int:
         on_bow = PER_BOW_PATH.get(k["name"], ())
         if any(k["launches_by_path"][p] == 0 for p in on_bow):
             raise AssertionError(f"{k['name']} was not launched on each of {on_bow}")
+        if k["name"] in PER_LEVEL_EXTRACTION and k["launches_by_path"]["per_level"] == 0:
+            raise AssertionError(f"{k['name']} was not launched on the per-level path")
+        on_tum = PER_FRAME[k["name"]] + PER_INSERT.get(k["name"], 0) > 0
+        if on_tum and any(k["launches_by_path"][p] == 0
+                          for p in ("tum", "tum_harris", "tum_device_loop")):
+            raise AssertionError(f"{k['name']} was not launched on each sequence from files")
     log("done", f"every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": results}))
     print(smi)

@@ -11,6 +11,8 @@ descriptors, its batched descent and tf-idf weights.
   device, as ``jnp.argmin``); then the L1-normalized tf-idf vector, whose
   per-word sums are ``optim.segment``'s sorted segment sums (the same
   bits on every run, where ``index_add_`` would add in atomics' order).
+- ``build_vocabulary_from_frames`` pools the descriptors the extractor
+  gives a corpus of frames and trains on them.
 - ``build_vocabulary`` (hierarchical binary k-medians with k-means++-style
   seeding, centroids the bitwise majority) and the DBoW2 text format are
   numpy on the host, copied from the JAX package so that one seed gives the
@@ -28,7 +30,8 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.hamming import popcount
 from ..optim.segment import segment_sum, segments
 
-__all__ = ["Vocabulary", "vocabulary_from_numpy", "build_vocabulary", "transform",
+__all__ = ["Vocabulary", "vocabulary_from_numpy", "build_vocabulary",
+           "build_vocabulary_from_frames", "transform",
            "save_vocabulary", "load_vocabulary", "direct_index_nodes", "load_orbvoc_text",
            "save_orbvoc_text"]
 
@@ -145,6 +148,32 @@ def build_vocabulary(descs: np.ndarray, k: int = 10, depth: int = 4, seed: int =
     w = np.log(max(len(descs), 1) / np.maximum(counts, 1.0))
     w[counts == 0] = 0.0
     return vocabulary_from_numpy(levels, w.astype(np.float32), k, depth, device)
+
+
+def build_vocabulary_from_frames(images, orb_cfg, k: int = 10, depth: int = 4,
+                                 seed: int = 0, max_descriptors: int = 200_000,
+                                 device: torch.device | str = DEFAULT_DEVICE) -> Vocabulary:
+    """Train a vocabulary from a corpus of frames (the reference's workflow:
+    a vocabulary is built offline from many images, then shipped). Each
+    [H, W] frame is extracted on ``device`` with ``orb_cfg``; the valid
+    descriptors are pooled, subsampled to ``max_descriptors`` with the
+    seed's generator, and clustered on the host."""
+    from ..ops.extractor import ExtractorConstants, orb_extract
+
+    device = resolve_device(device)
+    consts = None
+    pool = []
+    for im in images:
+        img = torch.as_tensor(np.asarray(im, np.float32), device=device)
+        if consts is None:
+            consts = ExtractorConstants(img.shape[0], img.shape[1], orb_cfg, device)
+        kps = orb_extract(img, orb_cfg, consts)
+        pool.append(kps.desc[kps.valid].cpu().numpy())
+    descs = np.concatenate(pool, axis=0)
+    if len(descs) > max_descriptors:
+        rng = np.random.default_rng(seed)
+        descs = descs[rng.choice(len(descs), max_descriptors, replace=False)]
+    return build_vocabulary(descs, k=k, depth=depth, seed=seed, device=device)
 
 
 # --- descent ----------------------------------------------------------------

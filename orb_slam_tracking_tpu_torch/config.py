@@ -3,26 +3,31 @@
 These are the port's own copies of the JAX package's ``CameraConfig``,
 ``OrbConfig``, ``MatcherConfig``, ``InitConfig``, ``TrackerConfig`` and
 ``SystemConfig``, with the same names, defaults, checks and derived
-shapes; ``TrackerConfig`` is copied whole, the others are cut to the
-fields the port reads. The port imports nothing of the JAX package, so it cannot share
-them; ``tests/test_torch_track.py`` holds the two sets equal. The YAML
-loader and the other fields come with the slices that use them.
+shapes; ``CameraConfig`` and ``TrackerConfig`` are copied whole, the
+others are cut to the fields the port reads. ``load_system_config`` is
+the JAX package's loader of reference-style ``Settings.yaml`` files. The
+port imports nothing of the JAX package, so it cannot share them;
+``tests/test_torch_track.py`` and ``tests/test_torch_io.py`` hold the
+two equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Optional, Tuple
 
 __all__ = ["CameraConfig", "InitConfig", "MatcherConfig", "OrbConfig",
-           "SystemConfig", "TrackerConfig"]
+           "SystemConfig", "TrackerConfig", "load_system_config"]
 
 
 @dataclasses.dataclass(frozen=True)
 class CameraConfig:
     """Pinhole camera with Brown radial-tangential distortion; the image
-    size is part of the config because every shape downstream is fixed."""
+    size is part of the config because every shape downstream is fixed.
+    ``fps`` sets the keyframe bound the loader derives; ``rgb`` is the
+    channel order of colour frames (``Camera.RGB``)."""
 
     fx: float
     fy: float
@@ -34,6 +39,8 @@ class CameraConfig:
     p2: float = 0.0
     width: int = 640
     height: int = 480
+    fps: float = 30.0
+    rgb: bool = True
 
     def __post_init__(self):
         if self.fx <= 0 or self.fy <= 0:
@@ -44,6 +51,10 @@ class CameraConfig:
     @property
     def has_distortion(self) -> bool:
         return any(abs(v) > 0 for v in (self.k1, self.k2, self.p1, self.p2))
+
+    @property
+    def k_tuple(self) -> Tuple[float, ...]:
+        return (self.fx, 0.0, self.cx, 0.0, self.fy, self.cy, 0.0, 0.0, 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +68,11 @@ class OrbConfig:
     n_levels: int = 8
     ini_th_fast: int = 20
     min_th_fast: int = 7
-    score_type: str = "fast"      # "harris" is not ported yet
+    score_type: str = "fast"      # "harris": FAST detects, Harris ranks
     max_keypoints: int = 0
     fast_cell_size: int = 35      # dual-threshold fallback cell, px
     select_cell_size: int = 12    # top-1-per-cell selection grid, px
-    use_atlas: bool = True        # False (per-level path) is not ported yet
+    use_atlas: bool = True        # False: the per-level path (identical output)
 
     def __post_init__(self):
         if self.n_levels < 1:
@@ -210,3 +221,88 @@ class SystemConfig:
         ``tracking.cpp:17-23``), capacity re-derived."""
         return dataclasses.replace(
             self.orb, n_features=2 * self.orb.n_features, max_keypoints=0)
+
+
+# Keys accepted from reference-style YAML (Settings.hpp:18-97), mapped onto
+# the dataclass tree; the documented names and the bundled-YAML variants
+# both, so that neither falls to the reference's silent zero.
+_CAMERA_KEYS = {
+    "Camera.fx": "fx", "Camera.fy": "fy", "Camera.cx": "cx", "Camera.cy": "cy",
+    "Camera.k1": "k1", "Camera.k2": "k2", "Camera.p1": "p1", "Camera.p2": "p2",
+    "Camera.fps": "fps", "Camera.RGB": "rgb",
+    "Camera.width": "width", "Camera.height": "height",
+}
+_ORB_KEYS = {
+    "ORBextractor.nFeatures": "n_features",
+    "ORBextractor.scaleFactor": "scale_factor",
+    "ORBextractor.nLevels": "n_levels",
+    "ORBextractor.iniThFAST": "ini_th_fast",
+    "ORBextractor.fastTh": "ini_th_fast",      # bundled-YAML alias
+    "ORBextractor.minThFAST": "min_th_fast",
+    "ORBextractor.scoreType": "score_type",    # 0 = Harris, 1 = FAST
+    "ORBextractor.nScoreType": "score_type",   # (Settings.hpp:77,124 enum)
+}
+_TRACKER_KEYS = {"UseMotionModel": "use_motion_model"}
+
+
+def _parse_opencv_yaml(text: str) -> dict:
+    """The flat ``key: scalar`` subset of OpenCV FileStorage YAML that the
+    reference's settings use (``%YAML:1.0`` is not valid PyYAML), each
+    value an int, else a float, else the string."""
+    out = {}
+    for line in text.splitlines():
+        line = line.split("#", 1)[0].strip()
+        if not line or line.startswith("%"):
+            continue
+        m = re.match(r"^([\w.]+)\s*:\s*(.+)$", line)
+        if not m:
+            continue
+        key, val = m.group(1), m.group(2).strip().strip('"')
+        try:
+            out[key] = int(val)
+        except ValueError:
+            try:
+                out[key] = float(val)
+            except ValueError:
+                out[key] = val
+    return out
+
+
+def load_system_config(path: str, width: int = 640, height: int = 480,
+                       strict: bool = True) -> SystemConfig:
+    """A reference-style ``Settings.yaml`` as a validated ``SystemConfig``.
+
+    Unknown keys raise ``KeyError`` when ``strict``, and the four
+    ``Camera.f*/c*`` keys are required (``cv::FileStorage`` would read a
+    missing key as 0). ``max_frames`` is ``18 * fps / 30``."""
+    with open(path) as f:
+        raw = _parse_opencv_yaml(f.read())
+
+    cam_kwargs, orb_kwargs, trk_kwargs = {}, {}, {}
+    for key, val in raw.items():
+        if key in _CAMERA_KEYS:
+            field = _CAMERA_KEYS[key]
+            cam_kwargs[field] = bool(val) if field == "rgb" else val
+        elif key in _ORB_KEYS:
+            field = _ORB_KEYS[key]
+            if field == "score_type":
+                # the reference's enum: HARRIS_SCORE=0, FAST_SCORE=1
+                orb_kwargs[field] = "harris" if int(val) == 0 else "fast"
+            else:
+                orb_kwargs[field] = val
+        elif key in _TRACKER_KEYS:
+            trk_kwargs[_TRACKER_KEYS[key]] = bool(val)
+        elif strict:
+            raise KeyError(f"unknown settings key {key!r} in {path}")
+
+    for req in ("fx", "fy", "cx", "cy"):
+        if req not in cam_kwargs:
+            raise KeyError(f"missing required camera key Camera.{req} in {path}")
+    cam_kwargs.setdefault("width", width)
+    cam_kwargs.setdefault("height", height)
+
+    camera = CameraConfig(**cam_kwargs)
+    fps = camera.fps or 30.0
+    tracker = TrackerConfig(**trk_kwargs)
+    tracker = dataclasses.replace(tracker, max_frames=int(18 * fps / 30))
+    return SystemConfig(camera=camera, orb=OrbConfig(**orb_kwargs), tracker=tracker)

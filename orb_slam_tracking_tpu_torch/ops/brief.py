@@ -1,7 +1,8 @@
 """Rotated-BRIEF 256-bit descriptors (counterpart of ``ops/brief.py``).
 
 ``brief_coords`` rotates the pattern by each keypoint's angle and rounds
-it (``cvRound``) into integer sample coordinates; ``brief_words`` samples,
+it (``cvRound``, ``rotated_pattern``) into integer sample coordinates
+(``sample_coords``); ``brief_words`` samples,
 compares and packs at them: the wrapper of the CUDA kernel
 ``csrc/brief_words.cu`` (which replaces the TPU kernel
 ``brief_sample_pallas`` and fuses its consumer, the compare and
@@ -22,7 +23,8 @@ import torch
 from .. import kernels
 from .pattern import EDGE_THRESHOLD
 
-__all__ = ["brief_coords", "brief_words", "brief_words_reference", "pack_bits"]
+__all__ = ["brief_coords", "brief_words", "brief_words_reference", "pack_bits",
+           "rotated_pattern", "sample_coords"]
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -77,20 +79,32 @@ def brief_words(img: torch.Tensor, sy: torch.Tensor,
 brief_words.launches = 0
 
 
-def brief_coords(xy: torch.Tensor, angle_deg: torch.Tensor,
-                 pattern_xy: torch.Tensor, hp: int, wp: int,
-                 pad: int = EDGE_THRESHOLD):
-    """Absolute sample coordinates (sy, sx), each [N, 512] int32, of the
-    pattern rotated by each keypoint's angle and rounded like the
-    reference's ``cvRound``. ``xy`` [N, 2] are integer-valued level-local
-    coords inside an image padded by ``pad`` to [hp, wp]; ``pattern_xy``
-    [2, 512] holds the pattern's x row and y row (the first 256 columns
-    are the first point of each pair)."""
+def rotated_pattern(angle_deg: torch.Tensor, pattern_xy: torch.Tensor):
+    """(rx, ry), each [N, 512] float32: the pattern offsets (``pattern_xy``
+    [2, 512], the x row and the y row; the first 256 columns are the first
+    point of each pair) rotated by each keypoint's angle and rounded like
+    the reference's ``cvRound``."""
     px, py = pattern_xy[0], pattern_xy[1]
     theta = torch.deg2rad(angle_deg)
     ca, sa = torch.cos(theta), torch.sin(theta)
     rx = torch.round(px[None, :] * ca[:, None] - py[None, :] * sa[:, None])
     ry = torch.round(px[None, :] * sa[:, None] + py[None, :] * ca[:, None])
+    return rx, ry
+
+
+def sample_coords(xy: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor, hp: int, wp: int,
+                  pad: int = EDGE_THRESHOLD):
+    """Absolute sample coordinates (sy, sx), each [N, 512] int32 and clamped
+    to the image, of the rotated offsets round keypoints ``xy`` [N, 2]
+    (integer-valued level-local coords inside an image padded by ``pad`` to
+    [hp, wp])."""
     sx = ((xy[:, 0:1] + rx).to(torch.int32) + pad).clamp(0, wp - 1)
     sy = ((xy[:, 1:2] + ry).to(torch.int32) + pad).clamp(0, hp - 1)
     return sy.contiguous(), sx.contiguous()
+
+
+def brief_coords(xy: torch.Tensor, angle_deg: torch.Tensor,
+                 pattern_xy: torch.Tensor, hp: int, wp: int,
+                 pad: int = EDGE_THRESHOLD):
+    """``sample_coords`` of the ``rotated_pattern`` of each keypoint."""
+    return sample_coords(xy, *rotated_pattern(angle_deg, pattern_xy), hp, wp, pad)

@@ -1,9 +1,11 @@
-"""Reflect padding, the 7x7 Gaussian blur and the cascaded pyramid resize.
+"""Reflect padding, the 7x7 Gaussian blur, the cascaded pyramid resize and
+the detection mask's per-level resize.
 
 Counterpart of ``orb_slam_tracking_tpu/ops/pyramid.py``. The resize is the
 JAX package's matrix form (``pyramid.py:96-100``): ``M_h @ img @ M_w.T``
 with the triangle-kernel matrices of ``_resize_matrix``, re-derived here in
-numpy. The blur keeps the JAX tap order (rows, then columns, each a
+numpy; both extraction paths take their levels from it, so they see the
+same pixels. The blur keeps the JAX tap order (rows, then columns, each a
 left-to-right sum of ``k[i] * shifted``) because descriptors compare
 ``rint(blur)`` and another order can move a value across .5.
 """
@@ -11,15 +13,17 @@ left-to-right sum of ``k[i] * shifted``) because descriptors compare
 from __future__ import annotations
 
 import functools
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from .pattern import EDGE_THRESHOLD
 
 __all__ = ["reflect_pad", "gauss_taps", "gaussian_blur", "resize_matrix",
-           "resize"]
+           "resize", "build_pyramid", "mask_level"]
 
 
 def reflect_pad(img: torch.Tensor, pad: int) -> torch.Tensor:
@@ -71,3 +75,41 @@ def resize(img: torch.Tensor, m_h: torch.Tensor,
            m_w: torch.Tensor) -> torch.Tensor:
     """``M_h @ img @ M_w.T`` (rows first, as the JAX matrix branch)."""
     return (m_h @ img) @ m_w.T
+
+
+def build_pyramid(image: torch.Tensor, resize_mats: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                  pad: int = EDGE_THRESHOLD) -> List[torch.Tensor]:
+    """[H, W] image -> the padded levels [h_l + 2 pad, w_l + 2 pad], level l
+    resized from level l - 1 by ``resize_mats[l - 1]`` (cascaded, as the
+    reference)."""
+    levels = []
+    cur = image
+    for lvl in range(len(resize_mats) + 1):
+        if lvl > 0:
+            cur = resize(cur, *resize_mats[lvl - 1])
+        levels.append(reflect_pad(cur, pad))
+    return levels
+
+
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """Source index of each of ``n_out`` samples under the nearest resize of
+    the JAX package's jitted ``jax.image.resize(..., "nearest")``:
+    ``floor(f32(i + 0.5) * f32(f32(n_in) * f32(1 / n_out)))``. XLA turns the
+    division by ``n_out`` into a product with its f32 reciprocal, which
+    moves exact ties (480 -> 400: row 2 reads 2, not 3)."""
+    one = np.float32(1.0)
+    scale = float(np.float32(np.float32(n_in) * (one / np.float32(n_out))))
+    pos = torch.arange(n_out, dtype=torch.float32, device=device) + 0.5
+    return torch.floor(pos * scale).to(torch.int64)
+
+
+def mask_level(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """A level-0 detection mask [H, W] (nonzero = detect, the OpenCV
+    ``ORBextractor::operator()`` convention) at a level's resolution, as
+    bool [h, w]: the nearest resize of the JAX package's extractor."""
+    m = mask.to(torch.float32)
+    if h != m.shape[0]:
+        m = m[_nearest_index(m.shape[0], h, m.device)]
+    if w != m.shape[1]:
+        m = m[:, _nearest_index(m.shape[1], w, m.device)]
+    return m > 0.5

@@ -1,6 +1,8 @@
-"""Track the rendered sequence of the tracking demo with the port.
+"""Track the rendered sequence of the tracking demo, or a directory of
+frames, with the port.
 
     python -m orb_slam_tracking_tpu_torch.tools.demo_tracking [--frames 40] [--cpu]
+        [--images DIR --settings YAML]
 
 The port's counterpart of the JAX package's ``examples/demo_tracking.py``
 on its synthetic sequence (``entry.tracker_entry``: 640x480, 1000
@@ -10,19 +12,27 @@ after the frame, keypoints, pose inliers, and the keyframe with its loop
 closer's verdict, init, LOST and relocalization events),
 then the frames tracked, the keyframes and map points, and the ATE after
 a Sim(3) alignment to ground truth. Exits 1 when that ATE is 0.05 or more.
-Runs on the card unless ``--cpu`` is given.
+With ``--images DIR --settings YAML`` it tracks the sorted ``.png`` and
+``.jpg`` files of DIR (the first ``--frames``; 0 takes all), read ahead by
+``io.native_loader.FrameLoader``, with the YAML's configuration; there is
+no ground truth then. Runs on the card unless ``--cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 
+from ..config import load_system_config
+from ..device import DEFAULT_DEVICE
 from ..entry import tracker_entry
-from ..slam.tracker import TrackState
+from ..io import load_gray
+from ..io.native_loader import FrameLoader
+from ..slam.tracker import Tracker, TrackState
 from ..utils.metrics import ate_rmse
 
 
@@ -57,19 +67,43 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--images", default=None, help="a directory of frames")
+    ap.add_argument("--settings", default=None, help="the settings YAML of --images")
     args = ap.parse_args(argv)
-    tracker, frames, poses = tracker_entry("cpu" if args.cpu else "cuda", args.frames)
+    device = "cpu" if args.cpu else DEFAULT_DEVICE
+    loader = None
+    if args.images:
+        if not args.settings:
+            print("error: --images requires --settings", file=sys.stderr)
+            return 2
+        files = sorted(f for f in os.listdir(args.images)
+                       if f.lower().endswith((".png", ".jpg")))[: args.frames or None]
+        if not files:
+            print(f"error: no images in {args.images}", file=sys.stderr)
+            return 2
+        h, w = load_gray(os.path.join(args.images, files[0])).shape
+        cfg = load_system_config(args.settings, width=w, height=h)
+        tracker = Tracker(cfg, device=device)
+        loader = FrameLoader([os.path.join(args.images, f) for f in files])
+        frames, poses, n = loader, None, len(files)
+        print(f"{n} frames from {args.images}, decoded by {loader.decoder}")
+    else:
+        tracker, frames, poses = tracker_entry(device, args.frames)
+        n = len(frames)
     t0 = time.time()
     n_working = 0
-    for i, frame in enumerate(frames):
-        m = tracker.track(frame, i / 30.0)
-        print(frame_line(i, m), flush=True)
-        n_working += tracker.state == TrackState.WORKING
+    try:
+        for i, frame in enumerate(frames):
+            m = tracker.track(frame, i / 30.0)
+            print(frame_line(i, m), flush=True)
+            n_working += tracker.state == TrackState.WORKING
+    finally:
+        if loader is not None:
+            loader.close()
     wall = time.time() - t0
-    n = len(frames)
     print(f"\ntracked {n_working}/{n} frames in {wall:.1f}s ({n / wall:.2f} fps); "
           f"keyframes={tracker.n_kf}, map points={int(tracker.map.n_points())}")
-    if len(tracker.trajectory) > 5:
+    if poses is not None and len(tracker.trajectory) > 5:
         ate, n_common = trajectory_ate(tracker, poses)
         print(f"ATE (Sim3-aligned) over {n_common} frames: {ate:.4f} scene units")
         return 0 if ate < 0.05 else 1

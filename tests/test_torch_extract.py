@@ -23,7 +23,7 @@ from orb_slam_tracking_tpu.utils import synthetic as jx_synthetic
 from orb_slam_tracking_tpu_torch.config import CameraConfig, OrbConfig
 from orb_slam_tracking_tpu_torch.ops import atlas, describe, orientation, pyramid, select
 from orb_slam_tracking_tpu_torch.ops.extractor import ExtractorConstants, orb_extract
-from orb_slam_tracking_tpu_torch.ops.fast import cell_reduce_max
+from orb_slam_tracking_tpu_torch.ops.fast import cell_reduce_max, detect_from_score
 from orb_slam_tracking_tpu_torch.ops.pattern import umax_table
 from orb_slam_tracking_tpu_torch.types import Keypoints
 from orb_slam_tracking_tpu_torch.utils import synthetic
@@ -59,8 +59,10 @@ def test_synthetic_scene_matches_jax():
         np.testing.assert_array_equal(
             synthetic.render_frame(field, _CAM, *poses[f]),
             jx_synthetic.render_frame(ref, _jx(_CAM), *ref_poses[f]))
-    with pytest.raises(ValueError, match="not ported"):
-        synthetic.make_trajectory(4, "forward")
+    # every mode is ported now (tests/test_torch_io.py holds them all equal);
+    # an unknown one raises, as in the JAX package
+    with pytest.raises(ValueError, match="spiral"):
+        synthetic.make_trajectory(4, "spiral")
 
 
 def _image(kind):
@@ -189,7 +191,7 @@ def test_detect_slice_exact(kind):
     padded = np.pad(img, 19, mode="reflect")
     score = np.asarray(jx_atlas.fast_score(jnp.asarray(padded), 19))
     ref = np.asarray(jx_atlas._detect_slice(jnp.asarray(score), 20, 7, 35))
-    got = atlas._detect_slice(torch.from_numpy(score), 20, 7, 35).numpy()
+    got = detect_from_score(torch.from_numpy(score), 20, 7, 35).numpy()
     np.testing.assert_array_equal(got, ref)
 
 
@@ -288,5 +290,11 @@ def test_extraction_from_image(kind):
     (OrbConfig(n_features=100, n_levels=2), {"mask": torch.ones(_H, _W)}),
 ])
 def test_unported_extractor_options_raise(cfg, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        orb_extract(torch.zeros(_H, _W), cfg, **kwargs)
+    """The per-level path, Harris ranking and the detection mask, which
+    raised until they were ported, now extract (their parity with JAX is in
+    tests/test_torch_extract_modes.py); a mask of another shape than the
+    image raises."""
+    kps = orb_extract(torch.from_numpy(_rendered()), cfg, **kwargs)
+    assert kps.desc.shape == (cfg.max_keypoints, 8) and int(kps.count()) > 0
+    with pytest.raises(ValueError, match="mask"):
+        orb_extract(torch.zeros(_H, _W), cfg, mask=torch.ones(_H, _W + 1))

@@ -242,8 +242,8 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port loads without jax and without the JAX
-    package, the two-view initialization slice's, the device loop's and the
-    BoW and loop-closing slice's among them."""
+    package, the two-view initialization slice's, the device loop's, the
+    BoW and loop-closing slice's and the file IO and tools among them."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import orb_slam_tracking_tpu_torch as p\n"
@@ -255,7 +255,10 @@ def test_port_imports_no_jax():
         "    'geometry.fundamental', 'geometry.twoview', 'slam.device_mapping',\n"
         "    'optim.segment', 'tools.seq_fps', 'tools.profile_step', 'bow.vocabulary',\n"
         "    'bow.database', 'geometry.sim3', 'optim.pose_graph', 'slam.loop_closing',\n"
-        "    'utils.loop_world')}\n"
+        "    'utils.loop_world', 'io', 'io.images', 'io.tum', 'io.native_loader',\n"
+        "    'ops.harris', 'slam.frame', 'utils.viz', 'utils.profiling',\n"
+        "    'tools.eval_tum', 'tools.make_synthetic_tum', 'tools.demo_initialization',\n"
+        "    'tools.demo_orb_extractor', 'tools.demo_tracking')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'orb_slam_tracking_tpu'))\n"

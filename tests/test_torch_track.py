@@ -74,15 +74,15 @@ def _same_default(got, ref):
 def test_config_fields_match_jax(name):
     """Each field of the port's dataclass exists in the JAX package's, with
     the same type and default; the tracking step and the two-view
-    initialization read all of them. ``TrackerConfig`` is copied whole:
-    the same fields in the same order."""
+    initialization read all of them. ``CameraConfig`` and
+    ``TrackerConfig`` are copied whole: the same fields in the same order."""
     ref = {f.name: f for f in dataclasses.fields(getattr(jx_config, name))}
     fields = dataclasses.fields(getattr(config, name))
     for f in fields:
         assert f.name in ref, f.name
         assert f.type == ref[f.name].type, f.name
         assert _same_default(f.default, ref[f.name].default), f.name
-    if name == "TrackerConfig":
+    if name in ("CameraConfig", "TrackerConfig"):
         assert [f.name for f in fields] == list(ref)
 
 
