@@ -67,16 +67,35 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
 10. the device-side mapping loop at the ``device_loop_entry()`` recipe (the
    JAX package's ``scripts/tpu_seq_fps.py``: 640x480, 1000 features, an
    8192-point / 24-keyframe map, BA window 8, bootstrapped by the port's
-   ``Tracker``): the loop over T1 = 48 and T2 = 192 frames, the two-point
+   ``Tracker``): the loop over T1 = 32 and T2 = 96 frames, the two-point
    sequence fps, the Sim(3)-aligned ATE over T2 (<= 3.7 cm), inserts
-   (>= 10) and lost frames (0), kernel launches per frame and per insert,
+   (>= 5) and lost frames (0), kernel launches per frame and per insert,
    host and device ms and host syncs per frame and per insert; the
-   48-frame prefix twice, bit for bit; one insert from a fixed map state
+   32-frame prefix twice, bit for bit; one insert from a fixed map state
    through the kernels and through the plain versions, identical; and
    the blackout recipe of ``tests/test_device_mapping.py`` (6 blank
    frames, re-acquired in the loop, the end rotation error within 0.5 deg
    of the clean run's);
-11. the per-level extractor (``OrbConfig(n_features=1000,
+11. multi-sequence data parallelism (``parallel/multiseq.py``) at the
+   ``multiseq_entry()`` recipe (the loop's bootstrap and map, given to B
+   distinct sequences that start 4 frames apart): the batched FAST,
+   orient-and-describe and Hamming-minima kernels at B = 1, 4 and 8 on the
+   arguments one batched step gives them, each one launch equal to its
+   plain version and to B single launches bit for bit, with device ms
+   (25 calls queued behind a spinning kernel, between CUDA events)
+   batched, as B single launches and for the minima ``torch.bmm`` of bf16
+   bit planes, the plain version's from a profiler trace, and the bound; the frozen-map sequence runner on 4
+   sequences x 12 frames: one extraction's and two matches' launches a
+   frame at B = 1 and B = 4, no host sync (the sync detector in "error"
+   mode), each sequence against its B = 1 run (poses within 1e-4) and
+   within ``tests/test_parallel.py``'s 1.5 deg / 0.08 of the rendered
+   truth (rotation relative to its start; Sim(3)-aligned centres); the
+   init runner on 2 sequences of that test's scene, each its own field
+   (both initialize, one extraction launch a frame); the mapping runner
+   on 2 sequences x 20 frames from the bootstrap (inserts on each, none
+   lost, one extraction launch a frame), each against the single-sequence
+   device loop (the same events, n_inliers within 1, poses within 1e-3);
+12. the per-level extractor (``OrbConfig(n_features=1000,
    use_atlas=False)``) on a rendered 640x480 frame, with FAST and with
    Harris ranking, without and with a half-image detection mask: through
    the kernels and through the plain versions, identical; identical to the
@@ -85,7 +104,7 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
    (fast_score, moments_at and brief_words 8 each an extraction); the
    card's extraction against the plain path on the CPU; host and device ms
    per extraction on both paths;
-12. a sequence read from files: the first frames of the 300-frame ``loop``
+13. a sequence read from files: the first frames of the 300-frame ``loop``
    written by ``tools/make_synthetic_tum.py`` into a temporary directory,
    run through ``tools/eval_tum.py``'s ``evaluate`` with the directory's
    ``Settings.yaml`` (640x480, 1000 features, the default tracker: 8192
@@ -98,7 +117,9 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
 The line before the last is ``nvidia-smi``'s name and power limit, the one
 before it a JSON object of per-kernel results (launches counted on each
 path: tracking, init, tracker, tracker_rescue, loop_ratio, loop,
-device_loop, per_level, tum, tum_harris, tum_device_loop); the
+device_loop, multiseq, multiseq_init, multiseq_mapping, per_level, tum,
+tum_harris, tum_device_loop; the batched kernels' numbers at B = 1, 4, 8
+under ``batched``); the
 last line is ``{"ok": true, "device": {...}}``. There is no CPU
 path: without a CUDA device the script raises.
 """
@@ -128,7 +149,7 @@ PAIRS = 10   # timed init pairs in phase 7
 # extraction way, and the device loop's frames under the stage profile
 FIXED_RUNS = 3
 KP_MOMENTS_RUNS = 5
-LOOP_PROFILE_FRAMES = 24
+LOOP_PROFILE_FRAMES = 16
 # H100 SXM peaks at 700 W: device memory and 32-bit arithmetic outside the
 # tensor cores (the kernels' f32 adds, subs, muls, min/max and int32 ops),
 # published data-sheet figures; and the Hamming kernel's binary tensor-core
@@ -673,14 +694,16 @@ TRACKER_GATES = {"min_working": 18, "rot_spread_deg": 1.5, "ate": 0.02, "min_kf"
 # minima ("loop_ratio")
 PER_BOW_PATH = {"hamming_matrix": ("tracker_rescue", "loop_ratio", "loop"),
                 "hamming_gated_min": ("loop_ratio",)}
-LOOP_T = (48, 192)
+# the loop's depth, cut from (48, 192) to make room for [multiseq]
+# (tools/seq_fps.py keeps 48 and 192)
+LOOP_T = (32, 96)
 PER_RECOVERY = {"hamming_gated_min": 2}
 PER_LOOP_INSERT = {"hamming_matrix": 4}
 FUSE_MATRIX = (2048, 8192)
-# gates: no lost frame and >= 10 inserts over T2 (max_frames = 18 forces
+# gates: no lost frame and >= 5 inserts over T2 (max_frames = 18 forces
 # one at least every 19 frames), the ATE bar of the TPU rounds' probe
 # (VERDICT.md), the blackout's end rotation error against the clean run's
-LOOP_GATES = {"lost": 0, "min_inserts": 10, "ate_m": 0.037, "blackout_deg": 0.5}
+LOOP_GATES = {"lost": 0, "min_inserts": LOOP_T[1] // 19, "ate_m": 0.037, "blackout_deg": 0.5}
 # the per-level extractor: the standalone kernels once a level (8 levels);
 # the atlas path's two a extraction, for comparison
 PER_LEVEL_EXTRACTION = {"fast_score": 8, "moments_at": 8, "brief_words": 8}
@@ -1483,7 +1506,7 @@ def _blackout(device):
 
 def phase_device_loop(device, e):
     """The device loop at the device_loop_entry() recipe (``e``, its
-    bootstrap done); see the module docstring, phase 9."""
+    bootstrap done); see the module docstring, phase 10."""
     from orb_slam_tracking_tpu_torch.tools import profile_step as ps
     from orb_slam_tracking_tpu_torch.tools.seq_fps import ate_m, timed_run
 
@@ -1507,7 +1530,7 @@ def phase_device_loop(device, e):
 
     e.loop.recover, e.loop.insert = counted_recover, recorded_insert
     try:
-        # the 48-frame prefix twice: bit for bit, and the rate's first point
+        # the T1-frame prefix twice: bit for bit, and the rate's first point
         s1, m1, o1 = timed_run(e, T1)
         s1b, m1b, o1b = timed_run(e, T1)
         differ = _loop_equal((m1, o1), (m1b, o1b))
@@ -1735,6 +1758,332 @@ def phase_tum(device, tmp):
     return counts
 
 
+# the multi-sequence phase: the batched kernels at B = 1, 4 and 8; the
+# frozen-map sequence runner on 4 distinct sequences (per frame one
+# extraction's and two matches' launches, whatever B is: PER_FRAME); the
+# init runner on 2 sequences from the strafe's start; the mapping runner on 2
+MULTISEQ_B = (1, 4, 8)
+MULTISEQ_T = 12
+MULTISEQ_RUN_B = 4
+# the init runner at tests/test_parallel.py's case (its 500-point field and
+# 16-pose strafe, min_matches 60, 150 hypotheses): sequence b its own field
+MULTISEQ_INIT = {"batch": 2, "frames": 8, "field_points": 500, "trajectory": 16}
+MULTISEQ_MAP = {"batch": 2, "frames": 20}
+# tests/test_parallel.py's ground-truth gates: rotation (relative to the
+# sequence's start) in degrees, Sim(3)-aligned camera centre
+MULTISEQ_GATES = {"rot_deg": 1.5, "centre": 0.08}
+# a sequence of the batch against its B = 1 run where the batched pose
+# products (bmm in place of mm) round otherwise: poses within 1e-4
+MULTISEQ_POSE_TOL = 1e-4
+MULTISEQ_MAP_POSE_TOL = 1e-3
+
+
+def _rows(name, args, b):
+    """Sequence b's arguments of a batched kernel call."""
+    if name == "fast_score":
+        return (args[0][b],) + tuple(args[1:])
+    if name == "orient_describe":
+        return tuple(a[b] for a in args[:5]) + tuple(args[5:])
+    return tuple(a[b] for a in args)
+
+
+def _joined(name, out):
+    """One tensor of a wrapper's outputs (the angle's int32 bits beside the
+    words; the three row-minimum vectors stacked)."""
+    if name == "orient_describe":
+        angle, desc = out
+        return torch.cat([angle.contiguous().view(torch.int32)[..., None], desc], -1)
+    return torch.stack(out) if isinstance(out, tuple) else out
+
+
+def queued_ms(fn, runs: int = RUNS) -> float:
+    """Device ms of one ``fn()``, its launches queued back to back: a
+    spinning kernel holds the card while ``runs`` calls are enqueued
+    between two CUDA events, so no host gap lies between them, and the
+    events' span over ``runs`` is the device's time per call. The spin is
+    doubled until it outlasts the enqueueing. (A ``torch.profiler`` trace
+    late in a long process came back holding 12 of 25 launches.)"""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 5e7
+    for _ in range(5):
+        spun, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spun.record()
+        torch.cuda._sleep(int(cycles))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if host_ms < 0.8 * spun.elapsed_time(start):
+            return start.elapsed_time(end) / runs
+        cycles *= 2
+    raise RuntimeError("the spin never outlasted the enqueueing")
+
+
+def _multiseq_kernels(device, e, results):
+    """The batched kernels at MULTISEQ_B, on the arguments one batched step
+    gives them: each equal to its plain version and to B single launches,
+    bit for bit; device ms batched, as B single launches and plain; the
+    bound; for the Hamming minima, torch.bmm of bf16 bit planes."""
+    from orb_slam_tracking_tpu_torch.ops import atlas, describe, fast, hamming, proj_matcher
+    from orb_slam_tracking_tpu_torch.ops.brief import brief_coords
+    from orb_slam_tracking_tpu_torch.ops.pattern import HALF_PATCH_SIZE
+    from orb_slam_tracking_tpu_torch.parallel.multiseq import _no_stats
+
+    kern = {"fast_score": (atlas, fast.fast_score, fast.fast_score_reference),
+            "orient_describe": (atlas, describe.orient_describe,
+                                describe.orient_describe_reference),
+            "hamming_gated_min": (proj_matcher, hamming.hamming_gated_min,
+                                  hamming.hamming_gated_min_reference)}
+    umax = e.run.step.consts.umax
+    r = HALF_PATCH_SIZE
+    dyx = torch.tensor([(dy, dx) for dy in range(-r, r + 1)
+                        for dx in range(-umax[abs(dy)], umax[abs(dy)] + 1)], device=device)
+    ops_per_kp = 5 * sum(umax[abs(dy)] for dy in range(-r, r + 1)) + 91
+    shifts = torch.arange(32, device=device, dtype=torch.int32)
+    K = e.args[5]
+    out = {name: {} for name in kern}
+    for B in MULTISEQ_B:
+        calls = {name: [] for name in kern}
+        maps = tuple(x[:B] for x in e.args[:3])
+        R0, t0 = e.args[3][:B], e.args[4][:B]
+        zn, zd, _ = _no_stats(maps[0])
+        with recorded(atlas, "fast_score", calls["fast_score"]), \
+                recorded(atlas, "orient_describe", calls["orient_describe"]), \
+                recorded(proj_matcher, "hamming_gated_min", calls["hamming_gated_min"]):
+            e.run.step(e.frames[:B, 0], *maps, zn, zd, zd, R0, t0, R0, t0, K)
+        for name, (_, wrapper, plain) in kern.items():
+            args = calls[name][0]
+            got = _joined(name, wrapper(*args))
+            ref = _joined(name, plain(*args))
+            singles = torch.stack([_joined(name, wrapper(*_rows(name, args, b)))
+                                   for b in range(B)], dim=int(name == "hamming_gated_min"))
+            if not torch.equal(got, ref) or not torch.equal(got, singles):
+                raise AssertionError(f"{name} at B = {B}: the batched launch differs from its "
+                                     "plain version or from B single launches")
+            lib = None
+            if name == "fast_score":
+                canvas = args[0]
+                n_out = got.numel()
+                work = (4.0 * (canvas.numel() + n_out), 175.0 * n_out)
+            elif name == "orient_describe":
+                canvas, blurred, yc, xc, xy = args[:5]
+                n = yc.numel()
+                hw = canvas.shape[-1] * canvas.shape[-2]
+                base = torch.arange(B, device=device)[:, None, None] * hw
+                pix = base + ((yc.long()[..., None] + dyx[:, 0]) * canvas.shape[-1]
+                              + xc.long()[..., None] + dyx[:, 1])
+                ang, _ = wrapper(*args)
+                samples = [brief_coords(xy[b], ang[b], args[5], *blurred.shape[-2:])
+                           for b in range(B)]
+                spix = torch.cat([(sy.long() * blurred.shape[-1] + sx) + b * blurred[0].numel()
+                                  for b, (sy, sx) in enumerate(samples)])
+                work = (4.0 * (torch.unique(pix).numel() + torch.unique(spix).numel()
+                               + 4 * n + args[5].numel() + 9 * n),
+                        float((ops_per_kp + 70 + 19 * 512 + 256) * n))
+            else:
+                d1, d2 = args[0], args[1]
+                P, N = d1.shape[-2], d2.shape[-2]
+                work = (B * (32.0 * (P + N) + 34.0 * P + 17.0 * N), B * 10.0 * P * N,
+                        B * 512.0 * P * N)
+                pa = ((d1[..., None] >> shifts) & 1).reshape(B, P, 256).to(torch.bfloat16)
+                pb = ((d2[..., None] >> shifts) & 1).reshape(B, N, 256).to(torch.bfloat16)
+                try:  # f32 output where this torch has it, else bf16 (also exact)
+                    torch.bmm(pa, pb.transpose(1, 2), out_dtype=torch.float32)
+                    lib = lambda: torch.bmm(pa, pb.transpose(1, 2), out_dtype=torch.float32)  # noqa: E731
+                except (TypeError, RuntimeError):
+                    lib = lambda: torch.bmm(pa, pb.transpose(1, 2))  # noqa: E731
+            t = {"ms": queued_ms(lambda: wrapper(*args)),
+                 "singles_ms": queued_ms(lambda: [wrapper(*_rows(name, args, b))
+                                                  for b in range(B)]),
+                 # the plain chains sync the host, so they cannot queue
+                 "plain_ms": device_ms(lambda: plain(*args)),
+                 "call_ms": time_ms(lambda: wrapper(*args)),
+                 "singles_call_ms": time_ms(lambda: [wrapper(*_rows(name, args, b))
+                                                     for b in range(B)]),
+                 "library_ms": queued_ms(lib) if lib is not None else None}
+            b_ms, b_by = bound_ms(*work)
+            t.update(bound_ms=b_ms, bound_by=b_by, shape=list(got.shape), max_abs_err=0.0)
+            out[name][f"B{B}"] = t
+            lib_s = f", library (torch.bmm of bf16 planes) {t['library_ms']:.4f}" if lib else ""
+            log("multiseq", f"{name} at B = {B} {tuple(got.shape)}: one launch equals the plain "
+                f"version and {B} single launches exactly; device ms batched {t['ms']:.4f}, "
+                f"{B} single launches {t['singles_ms']:.4f}, plain {t['plain_ms']:.4f}{lib_s}; "
+                f"call ms batched {t['call_ms']:.4f}, singles {t['singles_call_ms']:.4f}; "
+                f"bound {b_ms:.4f} ms ({b_by})")
+    for k in results:
+        if k["name"] in out:
+            k["batched"] = out[k["name"]]
+
+
+def _centre_errors(R, t, poses):
+    """Per frame: the rotation error relative to the first frame (deg) and
+    the Sim(3)-aligned camera-centre error, against ground truth."""
+    from orb_slam_tracking_tpu_torch.utils.metrics import umeyama_alignment
+
+    R = R.double().cpu().numpy()
+    t = t.double().cpu().numpy()
+    est = -np.einsum("kji,kj->ki", R, t)
+    gt = np.stack([-(Rg.T @ tg) for Rg, tg in poses])
+    R_a, t_a, s_a = umeyama_alignment(est, gt)
+    centre = np.linalg.norm((s_a * (R_a @ est.T)).T + t_a - gt, axis=-1)
+    rot = [_rot_err_deg(R[k] @ R[0].T, poses[k][0] @ poses[0][0].T) for k in range(len(R))]
+    return np.asarray(rot), centre
+
+
+def phase_multiseq(device, loop_entry, results):
+    """Multi-sequence data parallelism on the card (``parallel/multiseq.py``)
+    at the ``multiseq_entry()`` recipe; see the module docstring."""
+    from orb_slam_tracking_tpu_torch.entry import (DEVICE_LOOP_CAPS, DEVICE_LOOP_CONFIG,
+                                                   multiseq_entry)
+    from orb_slam_tracking_tpu_torch.parallel.multiseq import (
+        make_multiseq_init_runner, make_multiseq_mapping_runner)
+    from orb_slam_tracking_tpu_torch.slam.device_mapping import make_device_sequence_loop
+    from orb_slam_tracking_tpu_torch.slam.map import SlamMap
+    from orb_slam_tracking_tpu_torch.tools.profile_step import count_syncs
+    from orb_slam_tracking_tpu_torch.utils.synthetic import (CornerField, make_trajectory,
+                                                             render_frame)
+
+    e = multiseq_entry(device, max(MULTISEQ_B), MULTISEQ_T, loop_entry)
+    _multiseq_kernels(device, e, results)
+
+    # the sequence runner: B distinct sequences, against each one's B = 1 run
+    B, T = MULTISEQ_RUN_B, MULTISEQ_T
+    args = tuple(x[:B] for x in e.args[:5]) + (e.args[5],)
+    e.run(e.frames[:B, :2], *args)  # warm-up
+    torch.cuda.synchronize()
+    per_b = {}
+    for nb in (1, B):
+        reset_counters()
+        sub = tuple(x[:nb] for x in args[:5]) + (args[5],)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            o = e.run(e.frames[:nb, :T], *sub)
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        per_b[nb] = (read_counters(), host, o)
+        want = {k: v * T for k, v in PER_FRAME.items()}
+        if per_b[nb][0] != want:
+            raise AssertionError(f"B = {nb}: launches {per_b[nb][0]}, expected {want}")
+    counts, host, out = per_b[B]
+    syncs = count_syncs(lambda: e.run(e.frames[:B, :T], *args))
+    if syncs:
+        raise AssertionError(f"the sequence runner synced the host: {syncs}")
+    log("multiseq", f"sequence runner, B = {B} distinct sequences x {T} frames (starts "
+        f"{e.starts[:B]}): launches {counts} = {T} frames x one extraction and two matches "
+        f"for the whole batch, as at B = 1; no host sync (sync debug mode 'error'; the "
+        f"detector counted {sum(syncs.values())}); host {host:.3f} s ({host / T * 1e3:.2f} ms a "
+        f"frame of {B} sequences; B = 1: {per_b[1][1] / T * 1e3:.2f} ms)")
+    poses = e.loop_entry.poses
+    for b in range(B):
+        one = e.run(e.frames[b:b + 1, :T], *(x[b:b + 1] for x in args[:5]), args[5])
+        exact = all(torch.equal(one[k][0], out[k][b]) for k in one)
+        dpose = max(float((one[k][0] - out[k][b]).abs().max()) for k in ("R", "t"))
+        same_counts = all(torch.equal(one[k][0], out[k][b]) for k in ("n_inliers", "n_matches"))
+        rot, centre = _centre_errors(out["R"][b], out["t"][b],
+                                     poses[e.starts[b]:e.starts[b] + T])
+        log("multiseq", f"sequence {b} (from trajectory frame {e.starts[b]}): "
+            f"{'bit for bit its B = 1 run' if exact else f'its B = 1 run within {dpose:.3g}'}; "
+            f"n_inliers {int(out['n_inliers'][b].min())}-{int(out['n_inliers'][b].max())}; "
+            f"rotation error (relative) max {rot.max():.4f} deg, Sim(3)-aligned centre error "
+            f"max {centre.max():.4f}")
+        if not same_counts or dpose > MULTISEQ_POSE_TOL:
+            raise AssertionError(f"sequence {b} parts from its B = 1 run by {dpose}")
+        if rot.max() >= MULTISEQ_GATES["rot_deg"] or centre.max() >= MULTISEQ_GATES["centre"]:
+            raise AssertionError(f"sequence {b} misses the ground-truth gates {MULTISEQ_GATES}")
+        if not all(bool(torch.isfinite(out[k][b]).all()) for k in ("R", "t")):
+            raise AssertionError(f"sequence {b}: non-finite poses")
+    paths = {"multiseq": counts}
+
+    # the init runner: B sequences from no map, each in its own field
+    cfg = DEVICE_LOOP_CONFIG
+    ini = MULTISEQ_INIT
+    traj = make_trajectory(ini["trajectory"], "strafe")
+    frames = torch.tensor(np.stack([
+        np.stack([render_frame(CornerField(np.random.default_rng(b), n=ini["field_points"]),
+                               cfg.camera, *traj[f]) for f in range(ini["frames"])])
+        for b in range(ini["batch"])]), device=device)
+    init = make_multiseq_init_runner(
+        cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
+        dataclasses.replace(cfg.init, min_matches=60, ransac_iterations=150), device=device)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = init(frames, e.args[5], list(range(ini["batch"])))
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    paths["multiseq_init"] = read_counters()
+    ok = res["initialized"].tolist()
+    log("multiseq", f"init runner, B = {ini['batch']} x {ini['frames']} frames (fields "
+        f"{list(range(ini['batch']))}): initialized {ok} at frames "
+        f"{res['init_frame'].tolist()}, {res['map_valid'].sum(-1).tolist()} map points; "
+        f"launches {paths['multiseq_init']}; host {host:.2f} s")
+    if not all(ok):
+        raise AssertionError("a sequence of the init runner did not initialize")
+    if (paths["multiseq_init"]["fast_score"] != ini["frames"]
+            or paths["multiseq_init"]["orient_describe"] != ini["frames"]):
+        raise AssertionError("the init runner did not extract its batch with one launch a frame")
+    for b in range(ini["batch"]):
+        f0 = int(res["init_frame"][b])
+        work = res["state"][b, f0 + 1:] == 2
+        if not bool(work.all()) or not bool(torch.isfinite(res["R"][b]).all()):
+            raise AssertionError(f"init runner sequence {b} did not stay WORKING")
+
+    # the mapping runner: B sequences with growing maps from the bootstrap
+    mp = MULTISEQ_MAP
+    le = e.loop_entry
+    m0, R, t, K, fid, kfc, ref = le.args
+    mB = SlamMap(*(x.expand((mp["batch"],) + x.shape).contiguous() for x in m0))
+    stride = 4
+    frames = torch.stack([le.frames[stride * b: stride * b + mp["frames"]]
+                          for b in range(mp["batch"])])
+    R0 = torch.stack([R] + [e.args[3][b] for b in range(1, mp["batch"])])
+    t0_ = torch.stack([t] + [e.args[4][b] for b in range(1, mp["batch"])])
+    fids = [fid + stride * b for b in range(mp["batch"])]
+    runner = make_multiseq_mapping_runner(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
+                                          device=device, **DEVICE_LOOP_CAPS)
+    reset_counters()
+    t0 = time.perf_counter()
+    mo, oo = runner(frames, mB, R0, t0_, K, fids, [kfc] * mp["batch"], [ref] * mp["batch"])
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    paths["multiseq_mapping"] = read_counters()
+    n_ins = oo.inserted_kf.sum(1).tolist()
+    log("multiseq", f"mapping runner, B = {mp['batch']} x {mp['frames']} frames: inserts "
+        f"{n_ins}, lost {oo.lost.sum(1).tolist()}, points {mo.pt_valid.sum(1).tolist()}; "
+        f"launches {paths['multiseq_mapping']}; host {host:.2f} s")
+    if min(n_ins) < 1 or bool(oo.lost.any()):
+        raise AssertionError("the mapping runner lost a frame or inserted no keyframe")
+    if (paths["multiseq_mapping"]["fast_score"] != mp["frames"]
+            or paths["multiseq_mapping"]["orient_describe"] != mp["frames"]):
+        raise AssertionError("the mapping runner did not extract its batch once a frame")
+    single = make_device_sequence_loop(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
+                                       batched_solve=True, device=device, **DEVICE_LOOP_CAPS)
+    for b in range(mp["batch"]):
+        ms, os_ = single(frames[b], m0, R0[b], t0_[b], K, fids[b], kfc, ref)
+        same_events = all(torch.equal(getattr(os_, f), getattr(oo, f)[b])
+                          for f in ("n_kps", "inserted_kf", "lost"))
+        d_inl = int((os_.n_inliers - oo.n_inliers[b]).abs().max())
+        exact = same_events and all(torch.equal(getattr(os_, f), getattr(oo, f)[b])
+                                    for f in ("R", "t", "n_inliers"))
+        exact_map = all(torch.equal(x, y[b]) for x, y in zip(ms, mo))
+        dpose = max(float((getattr(os_, f) - getattr(oo, f)[b]).abs().max()) for f in ("R", "t"))
+        log("multiseq", f"mapping sequence {b}: against the single-sequence loop "
+            f"{'bit for bit' if exact else f'poses within {dpose:.3g}, n_inliers within {d_inl}'}"
+            f", events {'equal' if same_events else 'differ'}, final map "
+            f"{'identical' if exact_map else 'differs'}")
+        # tests/test_torch_multiseq_mapping.py's bounds for the batched pose
+        # LM's reordered sums carried through the inserts' local BA
+        if not same_events or d_inl > 1 or dpose > MULTISEQ_MAP_POSE_TOL:
+            raise AssertionError(f"mapping sequence {b} parts from the single-sequence loop")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -1762,6 +2111,7 @@ def main() -> int:
     paths["tracker"], paths["tracker_rescue"] = timed("tracker", phase_tracker, device)
     paths["loop"], paths["loop_ratio"] = timed("loop", phase_loop, device)
     paths["device_loop"] = timed("device_loop", phase_device_loop, device, loop_entry)
+    paths.update(timed("multiseq", phase_multiseq, device, loop_entry, results))
     paths["per_level"] = timed("per_level", phase_per_level, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as tmp:
         paths.update(timed("tum", phase_tum, device, tmp))

@@ -35,6 +35,15 @@
 // plus a 3-px apron (134 x 14 floats) in shared memory once. Any shape is
 // taken: the block masks the ragged right and bottom edge.
 //
+// Batched: [B, hp, wp] canvases in one launch, grid.z over the batch and
+// each block reading and writing its own canvas at stride hp * wp (in) and
+// h * w (out); a block's tile and apron never leave its canvas, since the
+// apron reads are bounded by [0, hp) x [0, wp) of that canvas. The
+// multi-sequence tracking step scores its B atlas canvases this way:
+// [B, 2514, 768] in, [B, 2476, 730] out; 0.0832 / 0.1600 ms at B = 4 / 8
+// against 0.0958 / 0.1901 for B single launches (chip_smoke.py
+// [multiseq], H100 80GB HBM3 at 700 W).
+//
 // Measured on an H100 80GB HBM3 at 700 W, on the 640x480 atlas canvas:
 // 0.021 ms (chip_smoke.py), against 0.047 ms for the form that recomputed
 // every arc; ~206 instructions a pixel (tools/probe_rates.py's SASS
@@ -106,6 +115,8 @@ fast_score_kernel(const float* __restrict__ in, float* __restrict__ out,
   __shared__ float tile[kTileH][kTileW];
   const int h = hp - 2 * pad;
   const int w = wp - 2 * pad;
+  in += (size_t)blockIdx.z * hp * wp;
+  out += (size_t)blockIdx.z * h * w;
   const int ox0 = blockIdx.x * kTX * kPX;
   const int oy0 = blockIdx.y * kTY;
 
@@ -138,13 +149,14 @@ fast_score_kernel(const float* __restrict__ in, float* __restrict__ out,
 
 }  // namespace
 
-// in: [hp, wp] f32 contiguous; out: [hp - 2 pad, wp - 2 pad] f32 contiguous.
-extern "C" int osltt_fast_score(const float* in, float* out, int hp, int wp,
+// in: [batch, hp, wp] f32 contiguous; out: [batch, hp - 2 pad, wp - 2 pad]
+// f32 contiguous.
+extern "C" int osltt_fast_score(const float* in, float* out, int batch, int hp, int wp,
                                 int pad, void* stream) {
   const int h = hp - 2 * pad;
   const int w = wp - 2 * pad;
   const dim3 block(kTX, kTY);
-  const dim3 grid((w + kTX * kPX - 1) / (kTX * kPX), (h + kTY - 1) / kTY);
+  const dim3 grid((w + kTX * kPX - 1) / (kTX * kPX), (h + kTY - 1) / kTY, batch);
   fast_score_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       in, out, hp, wp, pad);
   return static_cast<int>(cudaGetLastError());

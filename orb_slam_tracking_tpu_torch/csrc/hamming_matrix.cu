@@ -44,6 +44,18 @@
 // Any P and N (N < 2^21) are taken; rows and columns past the edge are
 // masked.
 //
+// Batched: B independent problems [B, P, 8] x [B, N, 8] (with [B, P] row
+// gates and [B, N] column gates) in one launch, grid.y over the batch. A
+// block offsets every pointer to its problem once at the start, so the
+// tile loop, the keys and the merges are the single problem's; the column
+// limit and the 16-byte alignment hold per problem (each [N, 8] slab is a
+// multiple of 32 bytes). The multi-sequence tracking step takes the gated
+// row minima of its B sequences this way, twice a frame ([B, 8192, 8] x
+// [B, 1024, 8]): 0.0414 / 0.0784 ms at B = 4 / 8 against 0.0448 / 0.0898
+// for B single launches; a bf16 bit-plane torch.bmm of the same inner
+// products alone takes 0.0601 / 0.1161 (chip_smoke.py [multiseq], H100
+// 80GB HBM3 at 700 W).
+//
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): the matrix in
 // 0.0135 ms at [8192, 1024] and 0.0070 at [2048, 2048] (a bf16 bit-plane
 // torch.mm takes 0.0154 / 0.0087; the __popc kernel this replaces took
@@ -132,6 +144,9 @@ __global__ void __launch_bounds__(kThreads) hamming_kernel(const Params P) {
   __shared__ int red_s[kGated ? WC : 1][16 * WR];
 
   const int p = P.p, n = P.n;
+  const size_t zb = blockIdx.y;  // this block's problem of the batch
+  const unsigned* __restrict__ pa_ = P.a + zb * p * kWords;
+  const unsigned* __restrict__ pb_ = P.b + zb * n * kWords;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int wr = warp % WR, wc = warp / WR;
@@ -145,8 +160,8 @@ __global__ void __launch_bounds__(kThreads) hamming_kernel(const Params P) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] < p) {
-      af[i][0] = P.a[(size_t)row[i] * kWords + q];
-      af[i][1] = P.a[(size_t)row[i] * kWords + q + 4];
+      af[i][0] = pa_[(size_t)row[i] * kWords + q];
+      af[i][1] = pa_[(size_t)row[i] * kWords + q + 4];
     }
     pa[i] = __popc(af[i][0]) + __popc(af[i][1]);
     pa[i] += __shfl_xor_sync(kFull, pa[i], 1);
@@ -154,12 +169,13 @@ __global__ void __launch_bounds__(kThreads) hamming_kernel(const Params P) {
     if constexpr (kGated) {
       rg[i] = {__int_as_float(0x7fc00000), 0.0f, 0.0f, true, 0, 0};
       if (row[i] < p) {
-        if (P.row_ok[row[i]]) rg[i].u = P.row_uv[2 * (size_t)row[i]];
-        rg[i].v = P.row_uv[2 * (size_t)row[i] + 1];
-        rg[i].r = P.row_r[row[i]];
-        rg[i].use_r = P.row_use[row[i]] != 0;
-        rg[i].lo = P.row_lo[row[i]];
-        rg[i].hi = P.row_hi[row[i]];
+        const size_t gr = zb * p + row[i];
+        if (P.row_ok[gr]) rg[i].u = P.row_uv[2 * gr];
+        rg[i].v = P.row_uv[2 * gr + 1];
+        rg[i].r = P.row_r[gr];
+        rg[i].use_r = P.row_use[gr] != 0;
+        rg[i].lo = P.row_lo[gr];
+        rg[i].hi = P.row_hi[gr];
       }
     }
   }
@@ -172,15 +188,16 @@ __global__ void __launch_bounds__(kThreads) hamming_kernel(const Params P) {
   auto load = [&](int tile) {
     const int j = tile * kTileCols + sc;
     w = make_uint4(0u, 0u, 0u, 0u);
-    if (j < n) w = *reinterpret_cast<const uint4*>(P.b + (size_t)j * kWords + 4 * sh);
+    if (j < n) w = *reinterpret_cast<const uint4*>(pb_ + (size_t)j * kWords + 4 * sh);
     if constexpr (kGated) {
       if (j >= n) return;
+      const size_t gj = zb * n + j;
       if (sh == 0) {
-        sx = P.col_ok[j] ? P.col_xy[2 * (size_t)j] : __int_as_float(0x7fc00000);
-        sy = P.col_xy[2 * (size_t)j + 1];
+        sx = P.col_ok[gj] ? P.col_xy[2 * gj] : __int_as_float(0x7fc00000);
+        sy = P.col_xy[2 * gj + 1];
       } else {
-        sx = P.col_r[j];
-        so = P.col_oct[j];
+        sx = P.col_r[gj];
+        so = P.col_oct[gj];
       }
     }
   };
@@ -233,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) hamming_kernel(const Params P) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           if (row[i] >= p) continue;
-          int* o = P.out + (size_t)row[i] * n + gj;
+          int* o = P.out + (zb * p + row[i]) * n + gj;
           if (gj + 1 < n && (n & 1) == 0) {
             *reinterpret_cast<int2*>(o) = make_int2(d[i][0], d[i][1]);
           } else {
@@ -292,26 +309,27 @@ __global__ void __launch_bounds__(kThreads) hamming_kernel(const Params P) {
       for (int k = 1; k < WC; ++k) merge(b, s, red_b[k][threadIdx.x], red_s[k][threadIdx.x]);
       if (r < p) {
         const int bv = b >> kIndexBits, sv = s >> kIndexBits;
-        P.best[r] = bv >= kNoPair ? kBig : bv;
-        P.best_j[r] = b & ((1 << kIndexBits) - 1);
-        P.second[r] = sv >= kNoPair ? kBig : sv;
+        const size_t gr = zb * p + r;
+        P.best[gr] = bv >= kNoPair ? kBig : bv;
+        P.best_j[gr] = b & ((1 << kIndexBits) - 1);
+        P.second[gr] = sv >= kNoPair ? kBig : sv;
       }
     }
   }
 }
 
 // rows per warp band: the most (up to 4 warps' 64) that still gives the
-// grid about one wave of the card's 132 SMs
-int rows_per_block(int p) {
+// grid (bands times problems) about one wave of the card's 132 SMs
+int rows_per_block(int p, int batch) {
   int wr = 4;
-  while (wr > 1 && (p + 16 * wr - 1) / (16 * wr) < 120) wr /= 2;
+  while (wr > 1 && (p + 16 * wr - 1) / (16 * wr) * batch < 120) wr /= 2;
   return wr;
 }
 
 template <bool kGated>
-int launch(const Params& P, void* stream) {
-  const int wr = rows_per_block(P.p);
-  const dim3 grid((P.p + 16 * wr - 1) / (16 * wr));
+int launch(const Params& P, int batch, void* stream) {
+  const int wr = rows_per_block(P.p, batch);
+  const dim3 grid((P.p + 16 * wr - 1) / (16 * wr), batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wr == 4) {
     hamming_kernel<4, kGated><<<grid, kThreads, 0, s>>>(P);
@@ -335,14 +353,15 @@ extern "C" int osltt_hamming_matrix(const void* a, const void* b, int* out, int 
   P.p = p;
   P.n = n;
   P.out = out;
-  return launch<false>(P, stream);
+  return launch<false>(P, 1, stream);
 }
 
-// As above, plus the gates (row_uv [p, 2] f32, row_r f32, row_use bool,
-// row_lo / row_hi int32, row_ok bool; col_xy [n, 2] f32, col_r f32,
-// col_oct int32, col_ok bool) and the outputs best, best_j, second [p]
-// int32.
-extern "C" int osltt_hamming_gated_min(const void* a, const void* b, int p, int n,
+// A batch of problems: a [batch, p, 8] and b [batch, n, 8] int32, the gates
+// (row_uv [batch, p, 2] f32, row_r f32, row_use bool, row_lo / row_hi
+// int32, row_ok bool, each [batch, p]; col_xy [batch, n, 2] f32, col_r f32,
+// col_oct int32, col_ok bool, each [batch, n]) and the outputs best,
+// best_j, second [batch, p] int32.
+extern "C" int osltt_hamming_gated_min(const void* a, const void* b, int batch, int p, int n,
                                        const void* row_uv, const void* row_r,
                                        const void* row_use, const void* row_lo,
                                        const void* row_hi, const void* row_ok,
@@ -367,5 +386,5 @@ extern "C" int osltt_hamming_gated_min(const void* a, const void* b, int p, int 
   P.best = best;
   P.best_j = best_j;
   P.second = second;
-  return launch<true>(P, stream);
+  return launch<true>(P, batch, stream);
 }

@@ -23,6 +23,14 @@ sequence metric of ``bench.py``): 640x480, 1000 features, an
 8192-point / 24-keyframe map with an 8-keyframe BA window, the 1200-point
 corner field over x in [-6, 6] on a 260-frame strafe, bootstrapped by the
 port's ``Tracker`` until it is WORKING.
+
+``multiseq_entry`` is the multi-sequence runner at the JAX package's DP
+throughput recipe (``scripts/tpu_multiseq_fps.py``): ``device_loop_entry``'s
+configuration, field, strafe and bootstrap, the bootstrapped map frozen and
+given to each of B sequences. Where the JAX script tiles one sequence B
+times, the port's sequences are distinct: sequence b starts
+``MULTISEQ_STRIDE * b`` frames further along the strafe, from the pose a
+one-sequence run reaches there.
 """
 
 from __future__ import annotations
@@ -36,15 +44,16 @@ from .config import (CameraConfig, InitConfig, MatcherConfig, OrbConfig,
                      SystemConfig, TrackerConfig)
 from .convert import map_from_numpy
 from .device import DEFAULT_DEVICE, resolve_device
+from .parallel.multiseq import make_multiseq_sequence_runner
 from .slam.device_mapping import DeviceSequenceLoop, make_device_sequence_loop
 from .slam.fused_step import TrackingStep
 from .slam.tracker import Tracker, TrackState
 from .slam.two_view_init import TwoViewInitializer
 from .utils.synthetic import CornerField, make_trajectory, render_frame
 
-__all__ = ["entry", "init_entry", "tracker_entry", "device_loop_entry", "InitEntry",
-           "TrackerEntry", "DeviceLoopEntry", "ENTRY_CAMERA", "INIT_PAIR", "TRACKER_CONFIG",
-           "DEVICE_LOOP_CONFIG"]
+__all__ = ["entry", "init_entry", "tracker_entry", "device_loop_entry", "multiseq_entry",
+           "InitEntry", "TrackerEntry", "DeviceLoopEntry", "MultiseqEntry", "ENTRY_CAMERA",
+           "INIT_PAIR", "TRACKER_CONFIG", "DEVICE_LOOP_CONFIG", "MULTISEQ_STRIDE"]
 
 ENTRY_CAMERA = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0,
                             width=640, height=480)
@@ -193,3 +202,47 @@ def device_loop_entry(device: torch.device | str = DEFAULT_DEVICE,
             torch.tensor(tracker.t, device=device), tracker.K, tracker.frame_id + 1,
             tracker.kf_insert_count, max(tracker.kf_ref_inliers, 1))
     return DeviceLoopEntry(loop, args, frames, i, poses)
+
+
+MULTISEQ_STRIDE = 4  # frames between the starts of consecutive sequences
+
+
+class MultiseqEntry(NamedTuple):
+    run: Callable        # make_multiseq_sequence_runner's run on the device
+    args: Tuple          # (map_pts [B,P,3], map_desc [B,P,8], map_valid [B,P], R0 [B,3,3],
+                         #  t0 [B,3], K [3,3]): the frozen maps and each start pose
+    frames: torch.Tensor  # [B, n_frames, 480, 640] float32: sequence b's frames
+    starts: List[int]    # the trajectory index of each sequence's first frame
+    loop_entry: DeviceLoopEntry  # the bootstrap (its map, pose, frames)
+
+
+def multiseq_entry(device: torch.device | str = DEFAULT_DEVICE, batch: int = 4,
+                   n_frames: int = 192, loop_entry: DeviceLoopEntry | None = None
+                   ) -> MultiseqEntry:
+    """B = ``batch`` distinct sequences of ``n_frames`` frames at the DP
+    recipe: ``run(frames[:, :T], *args)`` tracks the first ``T`` of each.
+    The bootstrap's map is given to every sequence; sequence b's first
+    pose is what a one-sequence run from the bootstrap reaches on the frame
+    before its start (sequence 0 starts from the bootstrap's pose).
+    ``loop_entry``, a ``device_loop_entry`` with enough frames, saves the
+    bootstrap."""
+    device = resolve_device(device)
+    cfg = DEVICE_LOOP_CONFIG
+    lead = MULTISEQ_STRIDE * (batch - 1)
+    e = loop_entry
+    if e is None or e.frames.shape[0] < n_frames + lead:
+        e = device_loop_entry(device, n_frames + lead)
+    run = make_multiseq_sequence_runner(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
+                                        device=device)
+    m, R, t, K = e.args[:4]
+    maps = [x.expand((batch,) + x.shape).contiguous() for x in (m.pts, m.desc, m.pt_valid)]
+    R0, t0 = [R], [t]
+    if lead:
+        head = run(e.frames[None, :lead], *(x[:1] for x in maps), R[None], t[None], K)
+        for b in range(1, batch):
+            R0.append(head["R"][0, MULTISEQ_STRIDE * b - 1])
+            t0.append(head["t"][0, MULTISEQ_STRIDE * b - 1])
+    frames = torch.stack([e.frames[MULTISEQ_STRIDE * b: MULTISEQ_STRIDE * b + n_frames]
+                          for b in range(batch)])
+    return MultiseqEntry(run, (*maps, torch.stack(R0), torch.stack(t0), K), frames,
+                         [e.boot_end + MULTISEQ_STRIDE * b for b in range(batch)], e)

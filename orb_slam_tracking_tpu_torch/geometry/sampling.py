@@ -22,15 +22,16 @@ def sample_distinct(u: torch.Tensor, n_valid: torch.Tensor, k: int) -> torch.Ten
 
     When ``n_valid < k`` (degenerate; callers gate on far larger counts)
     indices are clipped into range and need not be distinct."""
-    iters = u.shape[0]
     n = torch.clamp(n_valid, min=k).to(torch.float32)
-    chosen = torch.zeros((iters, k), dtype=torch.int32, device=u.device)
+    cols = []  # built out of place, so that torch.func.vmap can batch it
     for j in range(k):
         d = torch.floor(u[:, j] * (n - j)).to(torch.int32)
         d = torch.minimum(d, (n - j).to(torch.int32) - 1)
-        prev = torch.sort(chosen[:, :j], dim=1).values
-        for i in range(j):
-            d = d + (d >= prev[:, i]).to(torch.int32)
-        chosen[:, j] = d
+        if cols:
+            prev = torch.sort(torch.stack(cols, dim=1), dim=1).values
+            for i in range(j):
+                d = d + (d >= prev[:, i]).to(torch.int32)
+        cols.append(d)
+    chosen = torch.stack(cols, dim=1)
     hi = torch.clamp(n_valid - 1, min=0).to(torch.int32)
     return torch.minimum(chosen.clamp_min(0), hi)

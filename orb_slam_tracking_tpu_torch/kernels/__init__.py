@@ -37,13 +37,13 @@ _I = ctypes.c_int
 # C signature of every kernel entry point: (argtypes, restype int = the
 # cudaGetLastError() after the launch)
 _SIGNATURES = {
-    "osltt_fast_score": (_P, _P, _I, _I, _I, _P),
+    "osltt_fast_score": (_P, _P, _I, _I, _I, _I, _P),
     "osltt_brief_words": (_P, _I, _I, _P, _P, _P, _I, _P),
     "osltt_hamming_matrix": (_P, _P, _P, _I, _I, _P),
-    "osltt_hamming_gated_min": (_P, _P, _I, _I) + (_P,) * 14,
+    "osltt_hamming_gated_min": (_P, _P, _I, _I, _I) + (_P,) * 14,
     "osltt_moments_at": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     "osltt_orient_describe": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
-                              _I, _P),
+                              _I, _I, _P),
 }
 
 

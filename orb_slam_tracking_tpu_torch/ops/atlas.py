@@ -15,6 +15,12 @@ package's ``ORB_TPU_KP_MOMENTS=1`` branch, not by its default dense
 keypoint path takes less device time on the H100 (PERF.md). One call,
 ``orient_describe``, takes the moments, the angle and the descriptor of
 every keypoint.
+
+A leading batch axis (``[B, H, W]`` images, the multi-sequence runners'
+form) builds B canvases ``[B, canvas_h, canvas_w]`` and extracts from all
+of them with one FAST launch and one ``orient_describe`` launch; the
+per-level work runs on ``[B, h_l, w_l]`` slices. The batched path takes
+FAST ranking and no mask (the runners' defaults).
 """
 
 from __future__ import annotations
@@ -63,30 +69,33 @@ def atlas_layout(h: int, w: int, cfg: OrbConfig) -> AtlasLayout:
 def build_atlas(image: torch.Tensor, lay: AtlasLayout,
                 resize_mats: Sequence[Tuple[torch.Tensor, torch.Tensor]]
                 ) -> torch.Tensor:
-    """[H, W] image -> the stacked canvas [canvas_h, canvas_w]: the padded
-    levels of ``build_pyramid``, each right-padded with zeros.
+    """[(B,) H, W] image -> the stacked canvas [(B,) canvas_h, canvas_w]: the
+    padded levels of ``build_pyramid``, each right-padded with zeros.
 
     ``resize_mats[l - 1]`` is the (M_h, M_w) pair taking level l-1 to l.
     """
     blocks: List[torch.Tensor] = [
-        F.pad(padded, (0, lay.canvas_w - padded.shape[1]))
+        F.pad(padded, (0, lay.canvas_w - padded.shape[-1]))
         for padded in build_pyramid(image, resize_mats, _PAD)]
-    return torch.cat(blocks, dim=0)
+    return torch.cat(blocks, dim=-2)
 
 
 def pad_keypoints(cfg: OrbConfig, xy: torch.Tensor, response: torch.Tensor,
                   angle: torch.Tensor, desc: torch.Tensor, valid: torch.Tensor
                   ) -> Keypoints:
     """The levels' keypoints, level after level, each level's rows its
-    budget, padded with invalid rows to ``cfg.max_keypoints``."""
+    budget, padded with invalid rows to ``cfg.max_keypoints`` (under any
+    leading batch axis of the inputs)."""
     budgets = cfg.features_per_level()
     scales = cfg.level_scales()
     dev = xy.device
+    lead = valid.shape[:-1]
     octave = torch.cat([torch.full((b,), lvl, dtype=torch.int32, device=dev)
-                        for lvl, b in enumerate(budgets)])
+                        for lvl, b in enumerate(budgets)]).expand(lead + (-1,))
     size = torch.cat([torch.full((b,), PATCH_SIZE * scales[lvl], dtype=torch.float32,
-                                 device=dev) for lvl, b in enumerate(budgets)])
-    n = xy.shape[0]
+                                 device=dev) for lvl, b in enumerate(budgets)]
+                     ).expand(lead + (-1,))
+    n = xy.shape[-2]
     cap = cfg.max_keypoints
     if cap < n:
         raise ValueError(f"max_keypoints {cap} < total budget {n}")
@@ -106,12 +115,14 @@ def extract_from_canvas(canvas: torch.Tensor, lay: AtlasLayout,
                         cfg: OrbConfig, gauss: torch.Tensor,
                         pattern_xy: torch.Tensor, umax: Sequence[int],
                         mask: Optional[torch.Tensor] = None) -> Keypoints:
-    """Detect, select, orient and describe on a built canvas; ``mask``
-    [H, W] (nonzero = detect) restricts detection at level 0's
+    """Detect, select, orient and describe on a built canvas [(B,) Hc, Wc];
+    ``mask`` [H, W] (nonzero = detect) restricts detection at level 0's
     resolution."""
     budgets = cfg.features_per_level()
     scales = cfg.level_scales()
     harris = cfg.score_type == "harris"
+    if canvas.dim() == 3 and (harris or mask is not None):
+        raise ValueError("the batched extraction takes FAST ranking and no mask")
 
     score_c = fast_score(canvas, _PAD)
     blurred_c = gaussian_blur(canvas, gauss)
@@ -120,7 +131,7 @@ def extract_from_canvas(canvas: torch.Tensor, lay: AtlasLayout,
 
     xy_atlas, xs, resps, valids = [], [], [], []
     for lvl, ((hl, wl), off) in enumerate(zip(lay.level_shapes, lay.row_offsets)):
-        det = detect_from_score(score_c[off: off + hl, :wl], cfg.ini_th_fast,
+        det = detect_from_score(score_c[..., off: off + hl, :wl], cfg.ini_th_fast,
                                 cfg.min_th_fast, cfg.fast_cell_size, _PAD)
         if mask is not None:
             det = torch.where(mask_level(mask, hl, wl), det, 0.0)
@@ -129,24 +140,24 @@ def extract_from_canvas(canvas: torch.Tensor, lay: AtlasLayout,
         xy_l, resp, valid = select_level(det, budgets[lvl], cfg.select_cell_size)
         if harris:
             resp = torch.where(valid, resp - 1.0, resp)
-        xy_atlas.append(torch.stack([xy_l[:, 0], xy_l[:, 1] + float(off)], dim=-1))
+        xy_atlas.append(torch.stack([xy_l[..., 0], xy_l[..., 1] + float(off)], dim=-1))
         xs.append(xy_l * scales[lvl])
         resps.append(resp)
         valids.append(valid)
 
-    xy_c = torch.cat(xy_atlas)
+    xy_c = torch.cat(xy_atlas, dim=-2)
     # absolute canvas pixel of each keypoint (atlas.py:191-193)
-    yc = xy_c[:, 1].to(torch.int32) + _PAD
-    xc = xy_c[:, 0].to(torch.int32) + _PAD
+    yc = xy_c[..., 1].to(torch.int32) + _PAD
+    xc = xy_c[..., 0].to(torch.int32) + _PAD
     angle, desc = orient_describe(canvas, blurred_c, yc, xc, xy_c, pattern_xy, umax)
-    return pad_keypoints(cfg, torch.cat(xs), torch.cat(resps), angle, desc,
-                         torch.cat(valids))
+    return pad_keypoints(cfg, torch.cat(xs, dim=-2), torch.cat(resps, dim=-1), angle, desc,
+                         torch.cat(valids, dim=-1))
 
 
 def orb_extract_atlas(image: torch.Tensor, cfg: OrbConfig, consts,
                       mask: Optional[torch.Tensor] = None) -> Keypoints:
-    """Atlas ORB extraction of ``image [H, W] float32``."""
-    lay = atlas_layout(image.shape[0], image.shape[1], cfg)
+    """Atlas ORB extraction of ``image [(B,) H, W] float32``."""
+    lay = atlas_layout(image.shape[-2], image.shape[-1], cfg)
     canvas = build_atlas(image, lay, consts.resize_mats)
     return extract_from_canvas(canvas, lay, cfg, consts.gauss,
                                consts.pattern_xy, consts.umax, mask)

@@ -123,15 +123,19 @@ def orb_extract(image: torch.Tensor, cfg: OrbConfig,
                 consts: Optional[ExtractorConstants] = None,
                 mask: Optional[torch.Tensor] = None) -> Keypoints:
     """ORB keypoints + descriptors of ``image [H, W] float32``, at capacity
-    ``cfg.max_keypoints`` (invalid rows are padding).
+    ``cfg.max_keypoints`` (invalid rows are padding). Images ``[B, H, W]``
+    give ``Keypoints`` with a leading [B] (atlas path, FAST ranking, no
+    mask), from one launch of each extraction kernel for the batch.
 
     ``mask`` ([H, W], nonzero = detect) restricts detection, as the
     reference functor's mask argument (``ORBextractor.hpp:83-85``);
     ``cfg.score_type == "harris"`` ranks the FAST corners by the Harris
     measure, and ``response`` then carries the Harris value."""
     if consts is None:
-        consts = ExtractorConstants(image.shape[0], image.shape[1], cfg,
+        consts = ExtractorConstants(image.shape[-2], image.shape[-1], cfg,
                                     image.device)
+    if image.dim() == 3 and not cfg.use_atlas:
+        raise ValueError("the batched extraction takes the atlas path")
     if mask is not None and tuple(mask.shape) != tuple(image.shape):
         raise ValueError(f"mask {tuple(mask.shape)} does not match the image "
                          f"{tuple(image.shape)}")

@@ -14,6 +14,9 @@ On CPU tensors each runs its plain version (``hamming_matrix_reference``,
 distance takes the descriptors' bit planes through a float32 matrix
 product; ``popcount`` sums the bits of int32 words by masked shifts (SWAR).
 ``.launches`` on each wrapper counts its kernel's launches.
+``hamming_gated_min`` also takes a leading batch axis on every argument
+(``[B, P, 8] x [B, N, 8]``, the multi-sequence runners' form): B
+independent problems in one launch.
 """
 
 from __future__ import annotations
@@ -36,15 +39,15 @@ def hamming_matrix_reference(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor
     the inner products a float32 matrix product (TF32 is off in the port,
     and every partial sum is an integer <= 256, so exact in any order)."""
     a, b = _bit_planes(d1), _bit_planes(d2)
-    inner = a @ b.T
-    return (a.sum(1)[:, None] + b.sum(1)[None, :] - 2.0 * inner).to(torch.int32)
+    inner = a @ b.transpose(-1, -2)
+    return (a.sum(-1)[..., :, None] + b.sum(-1)[..., None, :] - 2.0 * inner).to(torch.int32)
 
 
 def _bit_planes(d: torch.Tensor) -> torch.Tensor:
-    """[N, 8] int32 words -> [N, 256] float32 bits (masked after the shift,
-    since int32 ``>>`` is arithmetic)."""
+    """[(B,) N, 8] int32 words -> [(B,) N, 256] float32 bits (masked after
+    the shift, since int32 ``>>`` is arithmetic)."""
     shifts = torch.arange(32, dtype=torch.int32, device=d.device)
-    return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], 256).to(torch.float32)
+    return ((d[..., None] >> shifts) & 1).reshape(d.shape[:-1] + (256,)).to(torch.float32)
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:
@@ -58,17 +61,17 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_descriptors(name: str, d1: torch.Tensor, d2: torch.Tensor) -> None:
-    kernels.require_cuda(name, d1, torch.int32, 2)
-    kernels.require_cuda(name, d2, torch.int32, 2)
+    kernels.require_cuda(name, d1, torch.int32, d1.dim())
+    kernels.require_cuda(name, d2, torch.int32, d1.dim())
     if d1.device != d2.device:
         raise ValueError(f"{name}: tensors on different devices")
-    if d1.shape[1] != 8 or d2.shape[1] != 8:
+    if d1.shape[-1] != 8 or d2.shape[-1] != 8:
         raise ValueError(f"{name}: expected [*, 8] words, got "
                          f"{tuple(d1.shape)} and {tuple(d2.shape)}")
     if d2.data_ptr() % 16:
         raise ValueError(f"{name}: the column descriptors must be 16-byte aligned")
-    if d2.shape[0] >= 1 << 21:
-        raise ValueError(f"{name}: {d2.shape[0]} columns exceed the kernel's 2^21")
+    if d2.shape[-2] >= 1 << 21:
+        raise ValueError(f"{name}: {d2.shape[-2]} columns exceed the kernel's 2^21")
 
 
 def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
@@ -78,6 +81,8 @@ def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """
     if d1.device.type == "cpu" and d2.device.type == "cpu":
         return hamming_matrix_reference(d1, d2)
+    if d1.dim() != 2:
+        raise ValueError(f"hamming_matrix: expected [P, 8] rows, got {tuple(d1.shape)}")
     _check_descriptors("hamming_matrix", d1, d2)
     p, n = d1.shape[0], d2.shape[0]
     out = torch.empty((p, n), dtype=torch.int32, device=d1.device)
@@ -110,18 +115,18 @@ def hamming_gated_min_reference(
     where nothing is eligible), ``best_j`` (the lowest column on ties, 0
     where nothing is eligible, as ``argmin`` of a constant row) and
     ``second`` (the least over the columns other than ``best_j``), all [P]
-    int32."""
+    int32. A leading [B] on every argument takes B problems at once."""
     D = hamming_matrix_reference(d1, d2)
-    dx = (row_uv[:, 0:1] - col_xy[None, :, 0]).abs()
-    dy = (row_uv[:, 1:2] - col_xy[None, :, 1]).abs()
-    r = torch.where(row_use[:, None], row_r[:, None], col_r[None, :])
-    oct_ = col_oct[None, :]
-    eligible = (row_ok[:, None] & col_ok[None, :] & (dx <= r) & (dy <= r)
-                & (oct_ >= row_lo[:, None]) & (oct_ <= row_hi[:, None]))
+    dx = (row_uv[..., :, 0:1] - col_xy[..., None, :, 0]).abs()
+    dy = (row_uv[..., :, 1:2] - col_xy[..., None, :, 1]).abs()
+    r = torch.where(row_use[..., :, None], row_r[..., :, None], col_r[..., None, :])
+    oct_ = col_oct[..., None, :]
+    eligible = (row_ok[..., :, None] & col_ok[..., None, :] & (dx <= r) & (dy <= r)
+                & (oct_ >= row_lo[..., :, None]) & (oct_ <= row_hi[..., :, None]))
     Dm = torch.where(eligible, D, BIG)
-    best, best_j = Dm.min(dim=1)  # first index on ties, as jnp.argmin
-    cols = torch.arange(d2.shape[0], device=d1.device)
-    second = torch.where(cols[None, :] == best_j[:, None], BIG, Dm).amin(dim=1)
+    best, best_j = Dm.min(dim=-1)  # first index on ties, as jnp.argmin
+    cols = torch.arange(d2.shape[-2], device=d1.device)
+    second = torch.where(cols == best_j[..., None], BIG, Dm).amin(dim=-1)
     return best, best_j.to(torch.int32), second
 
 
@@ -132,8 +137,10 @@ def hamming_gated_min(
     col_xy: torch.Tensor, col_r: torch.Tensor, col_oct: torch.Tensor,
     col_ok: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per row of ``d1 [P, 8]``: (best, best_j, second) [P] int32 over the
-    eligible columns of ``d2 [N, 8]`` (see ``hamming_gated_min_reference``).
+    """Per row of ``d1 [(B,) P, 8]``: (best, best_j, second) [(B,) P] int32
+    over the eligible columns of ``d2 [(B,) N, 8]`` (see
+    ``hamming_gated_min_reference``); a leading [B] on every argument takes
+    B problems in one launch.
 
     Rows: ``row_uv [P, 2]`` and ``row_r`` f32, ``row_use`` and ``row_ok``
     bool, ``row_lo``/``row_hi`` int32; columns: ``col_xy [N, 2]`` and
@@ -145,8 +152,13 @@ def hamming_gated_min(
     if d1.device.type == "cpu" and d2.device.type == "cpu":
         return hamming_gated_min_reference(d1, d2, *args)
     name = "hamming_gated_min"
+    lead = d1.shape[:-2]
+    if len(lead) > 1 or d2.shape[:-2] != lead:
+        raise ValueError(f"{name}: expected [P, 8] x [N, 8] or [B, P, 8] x [B, N, 8], got "
+                         f"{tuple(d1.shape)} and {tuple(d2.shape)}")
     _check_descriptors(name, d1, d2)
-    p, n = d1.shape[0], d2.shape[0]
+    p, n = d1.shape[-2], d2.shape[-2]
+    batch = lead[0] if lead else 1
     if n == 0:
         raise ValueError(f"{name}: no columns to take a minimum over")
     specs = ((row_uv, torch.float32, (p, 2)), (row_r, torch.float32, (p,)),
@@ -155,16 +167,18 @@ def hamming_gated_min(
              (col_xy, torch.float32, (n, 2)), (col_r, torch.float32, (n,)),
              (col_oct, torch.int32, (n,)), (col_ok, torch.bool, (n,)))
     for t, dtype, shape in specs:
+        shape = lead + shape
         kernels.require_cuda(name, t, dtype, len(shape))
         if tuple(t.shape) != shape or t.device != d1.device:
             raise ValueError(f"{name}: expected shape {shape} on {d1.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
-    best, best_j, second = torch.empty((3, p), dtype=torch.int32, device=d1.device)
-    if p == 0:
+    best, best_j, second = torch.empty((3,) + lead + (p,), dtype=torch.int32,
+                                       device=d1.device)
+    if p == 0 or batch == 0:
         return best, best_j, second
     with torch.cuda.device(d1.device):
         rc = kernels.library().osltt_hamming_gated_min(
-            d1.data_ptr(), d2.data_ptr(), p, n, *(t.data_ptr() for t in args),
+            d1.data_ptr(), d2.data_ptr(), batch, p, n, *(t.data_ptr() for t in args),
             best.data_ptr(), best_j.data_ptr(), second.data_ptr(),
             torch.cuda.current_stream(d1.device).cuda_stream)
     kernels.check_launch(name, rc)

@@ -59,41 +59,41 @@ class MatchResult(NamedTuple):
 
 
 def _rotation_consistent(keep: torch.Tensor, rot: torch.Tensor, L: int) -> torch.Tensor:
-    """The rotation-histogram check, batched over a leading axis: ``keep``
-    [B, N1] bool, ``rot`` [B, N1] the angle differences (deg) of each row's
-    match. Each batch row bins its kept matches' rotations into ``L`` bins
-    and keeps the top three (the lower bin first on equal counts, as
+    """The rotation-histogram check over the last axis: ``keep`` [..., N1]
+    bool, ``rot`` [..., N1] the angle differences (deg) of each row's match.
+    Each batch row bins its kept matches' rotations into ``L`` bins and
+    keeps the top three (the lower bin first on equal counts, as
     ``lax.top_k``; ``ComputeThreeMaxima``'s 0.1x gates on the second and
-    third). -> [B, N1] bool: the row's bin is one of those kept."""
+    third). -> [..., N1] bool: the row's bin is one of those kept."""
     rot = torch.where(rot < 0, rot + 360.0, rot)
     b = torch.round(rot * (L / 360.0)).to(torch.int32)
     b = torch.where(b == L, 0, b)
     # out-of-range bins go to a spare bin L, which the JAX scatter drops
     slot = torch.where((b >= 0) & (b < L), b, L).to(torch.int64)
-    counts = torch.zeros((keep.shape[0], L + 1), dtype=torch.int32, device=keep.device)
-    counts.scatter_add_(1, slot, keep.to(torch.int32))
-    top_counts, top_bins = torch.sort(counts[:, :L], dim=1, descending=True, stable=True)
-    c = top_counts[:, :3].float()
-    allow2 = (c[:, 1] >= 0.1 * c[:, 0])[:, None]
-    allow3 = (c[:, 2] >= 0.1 * c[:, 0])[:, None]
-    return ((b == top_bins[:, 0:1]) | ((b == top_bins[:, 1:2]) & allow2)
-            | ((b == top_bins[:, 2:3]) & allow3))
+    counts = torch.zeros(keep.shape[:-1] + (L + 1,), dtype=torch.int32, device=keep.device)
+    counts.scatter_add_(-1, slot, keep.to(torch.int32))
+    top_counts, top_bins = torch.sort(counts[..., :L], dim=-1, descending=True, stable=True)
+    c = top_counts[..., :3].float()
+    allow2 = (c[..., 1] >= 0.1 * c[..., 0])[..., None]
+    allow3 = (c[..., 2] >= 0.1 * c[..., 0])[..., None]
+    return ((b == top_bins[..., 0:1]) | ((b == top_bins[..., 1:2]) & allow2)
+            | ((b == top_bins[..., 2:3]) & allow3))
 
 
 def _mutual(accept: torch.Tensor, best: torch.Tensor, best_j: torch.Tensor,
             n2: int) -> torch.Tensor:
-    """Mutual resolution over the last axis of ``accept`` [B, N1]: per
+    """Mutual resolution over the last axis of ``accept`` [..., N1]: per
     frame-2 index ``best_j`` keep the single closest claimant of each batch
     row, the lower frame-1 index breaking ties (a distance-then-index key,
     ``scatter_reduce_("amin")`` for the ``.at[].min``)."""
     n1 = accept.shape[-1]
     rows = torch.arange(n1, dtype=torch.int32, device=accept.device)
     key = torch.where(accept, torch.where(accept, best, 0) * n1 + rows, _SENTINEL)
-    min_key = torch.full((accept.shape[0], n2), _SENTINEL, dtype=torch.int32,
+    min_key = torch.full(accept.shape[:-1] + (n2,), _SENTINEL, dtype=torch.int32,
                          device=accept.device)
     j = best_j.to(torch.int64)
-    min_key.scatter_reduce_(1, j, key, "amin")
-    return accept & (key == min_key.gather(1, j))
+    min_key.scatter_reduce_(-1, j, key, "amin")
+    return accept & (key == min_key.gather(-1, j))
 
 
 def search_for_initialization(
@@ -106,45 +106,46 @@ def search_for_initialization(
     """Match frame-1 keypoints to frame-2 keypoints for initialization.
 
     Coordinates are undistorted level-0 pixels; only octave-0 keypoints
-    take part on both sides (``ORBmatcher.cpp:36-44``)."""
-    n1, n2 = desc1.shape[0], desc2.shape[0]
+    take part on both sides (``ORBmatcher.cpp:36-44``). A leading [B] on
+    every argument matches B pairs at once (one Hamming-kernel launch), and
+    every output then has it."""
+    lead, n1, n2 = desc1.shape[:-2], desc1.shape[-2], desc2.shape[-2]
     dev = desc1.device
 
     # only octave-0 keypoints of both frames, inside the window on both
     # axes. The gates fold into what exists: a frame-1 row takes part only
     # at octave 0 and then admits frame-2 octaves in [octave1, octave1], so
     # 0 alone; rows that take part use the window as their radius (one
-    # constant vector, sliced for the unused column radius)
+    # constant per row and per column)
     oct1, oct2 = octave1.to(torch.int32), octave2.to(torch.int32)
     row_ok = valid1 & (oct1 == 0)
-    window = torch.full((max(n1, n2),), cfg.window_size, dtype=torch.float32, device=dev)
+    r1, r2 = (torch.full(lead + (n,), cfg.window_size, dtype=torch.float32, device=dev)
+              for n in (n1, n2))
     best, best_j, second = hamming_gated_min(
-        desc1, desc2, xy1, window[:n1], row_ok, oct1, oct1, row_ok,
-        xy2, window[:n2], oct2, valid2)
+        desc1, desc2, xy1, r1, row_ok, oct1, oct1, row_ok, xy2, r2, oct2, valid2)
 
     had_candidate = best < BIG
     pass_low = best <= cfg.th_low
     pass_ratio = best.float() < cfg.nn_ratio * second.float()
     accept = had_candidate & pass_low & pass_ratio
 
-    keep = _mutual(accept[None], best[None], best_j[None], n2)[0]
-    j = best_j.to(torch.int64)
+    keep = _mutual(accept, best, best_j, n2)
 
-    n_reject_distance = (had_candidate & ~pass_low).sum(dtype=torch.int32)
-    n_reject_ratio = (had_candidate & pass_low & ~pass_ratio).sum(dtype=torch.int32)
+    n_reject_distance = (had_candidate & ~pass_low).sum(dim=-1, dtype=torch.int32)
+    n_reject_ratio = (had_candidate & pass_low & ~pass_ratio).sum(dim=-1, dtype=torch.int32)
 
     if cfg.check_orientation:
-        in_top = _rotation_consistent(keep[None], (angle1 - angle2[j])[None],
-                                        cfg.histo_length)[0]
-        n_reject_orientation = (keep & ~in_top).sum(dtype=torch.int32)
+        rot = angle1 - angle2.gather(-1, best_j.to(torch.int64))
+        in_top = _rotation_consistent(keep, rot, cfg.histo_length)
+        n_reject_orientation = (keep & ~in_top).sum(dim=-1, dtype=torch.int32)
         keep = keep & in_top
     else:
-        n_reject_orientation = torch.zeros((), dtype=torch.int32, device=dev)
+        n_reject_orientation = torch.zeros(lead, dtype=torch.int32, device=dev)
 
     return MatchResult(
         matches12=torch.where(keep, best_j, -1),
         distances=torch.where(keep, best, BIG),
-        n_matches=keep.sum(dtype=torch.int32),
+        n_matches=keep.sum(dim=-1, dtype=torch.int32),
         n_reject_distance=n_reject_distance,
         n_reject_ratio=n_reject_ratio,
         n_reject_orientation=n_reject_orientation,
@@ -231,7 +232,7 @@ def match_descriptors(desc1: torch.Tensor, valid1: torch.Tensor,
         desc1, desc2, xy[:n1], r[:n1], valid1, lo, hi, valid1,
         xy[:n2], r[:n2], octave[:n2], valid2)
     accept = (best <= th) & (best.float() < ratio * second.float())
-    keep = _mutual(accept[None], best[None], best_j[None], n2)[0]
+    keep = _mutual(accept, best, best_j, n2)
     return torch.where(keep, best_j, -1)
 
 
@@ -251,19 +252,20 @@ def match_descriptors_bow(desc1: torch.Tensor, valid1: torch.Tensor, node1: torc
     second = torch.where(cols == best_j[:, None], BIG, Dm).amin(dim=1)
     best_j = best_j.to(torch.int32)
     accept = (best <= th) & (best.float() < ratio * second.float())
-    keep = _mutual(accept[None], best[None], best_j[None], n2)[0]
+    keep = _mutual(accept, best, best_j, n2)
     return torch.where(keep, best_j, -1)
 
 
 def compact_matches(matches12: torch.Tensor, cap: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sparse matches [N1] -> (pairs [min(cap, N1), 2] int32 (i1, i2),
-    valid [min(cap, N1)] bool): matched rows first, in index order, like the
-    reference's ``mvMatches12`` compaction (``Initializer.cpp:24-34``)."""
+    """Sparse matches [(B,) N1] -> (pairs [(B,) min(cap, N1), 2] int32 (i1,
+    i2), valid [(B,) min(cap, N1)] bool): matched rows first, in index
+    order, like the reference's ``mvMatches12`` compaction
+    (``Initializer.cpp:24-34``)."""
     matched = matches12 >= 0
-    order = torch.argsort((~matched).to(torch.int32), stable=True)
-    take = order[:cap]
-    valid = matched[take]
+    order = torch.argsort((~matched).to(torch.int32), dim=-1, stable=True)
+    take = order[..., :cap]
+    valid = matched.gather(-1, take)
     i1 = torch.where(valid, take.to(torch.int32), 0)
-    i2 = torch.where(valid, matches12[take], 0)
+    i2 = torch.where(valid, matches12.gather(-1, take), 0)
     return torch.stack([i1, i2], dim=-1), valid

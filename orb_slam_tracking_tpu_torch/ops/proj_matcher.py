@@ -9,14 +9,16 @@ Per-point viewing statistics (normal, dmin, dmax) drive the
 ``Frame::isInFrustum`` gates; ``dmax == 0`` disables them for that point.
 The per-point least distance inside the window comes from the
 ``hamming_gated_min`` kernel wrapper, which never forms the [P, N]
-distance matrix.
+distance matrix. A leading [B] on the map, the pose and the keypoints
+(``K`` shared) matches B sequences with one kernel launch.
 """
 
 from __future__ import annotations
 
-import math
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import MatcherConfig
@@ -28,13 +30,24 @@ _SENTINEL = torch.iinfo(torch.int32).max
 _INT_MIN = torch.iinfo(torch.int32).min
 
 
+@functools.lru_cache(maxsize=8)
+def _log_f32(x: float) -> float:
+    """``log(x)`` as the JAX package takes it, ``jnp.log`` of the f32 ``x``.
+    PredictScale's ``ceil(log(dmax / dist) / log(s))`` sits on an integer
+    whenever the camera is where the point's statistics were taken (the
+    ratio is then a power of s), so one rounding there moves the predicted
+    octave, its window and its octave gate by a level: the float64 log of
+    s, 5e-8 below the f32 one, did (``tests/test_torch_device_recovery.py``)."""
+    return float(np.log(np.float32(x)))
+
+
 class ProjMatchResult(NamedTuple):
-    kp_for_point: torch.Tensor  # [P] int32 keypoint index or -1
-    point_for_kp: torch.Tensor  # [N] int32 map-point index or -1
-    uv_proj: torch.Tensor       # [P, 2] projected pixel of each map point
-    n_matches: torch.Tensor     # [] int32
-    n_visible: torch.Tensor     # [] int32
-    visible: torch.Tensor       # [P] bool frustum visibility
+    kp_for_point: torch.Tensor  # [(B,) P] int32 keypoint index or -1
+    point_for_kp: torch.Tensor  # [(B,) N] int32 map-point index or -1
+    uv_proj: torch.Tensor       # [(B,) P, 2] projected pixel of each map point
+    n_matches: torch.Tensor     # [(B,)] int32
+    n_visible: torch.Tensor     # [(B,)] int32
+    visible: torch.Tensor       # [(B,) P] bool frustum visibility
 
 
 def search_by_projection(
@@ -46,11 +59,13 @@ def search_by_projection(
     pt_normal: torch.Tensor, pt_dmin: torch.Tensor, pt_dmax: torch.Tensor,
     n_levels: int,
 ) -> ProjMatchResult:
-    """Match map points [P] to keypoints [N] around their projections under
-    (R, t); ``kp_xy`` are undistorted keypoint pixels."""
-    P = map_pts.shape[0]
-    N = kp_desc.shape[0]
-    pc = map_pts @ R.T + t
+    """Match map points [(B,) P] to keypoints [(B,) N] around their
+    projections under (R, t) [(B,) 3, 3], [(B,) 3]; ``kp_xy`` are
+    undistorted keypoint pixels."""
+    P = map_pts.shape[-2]
+    N = kp_desc.shape[-2]
+    lead = map_pts.shape[:-2]
+    pc = map_pts @ R.transpose(-1, -2) + t[..., None, :]
     z = pc[..., 2]
     zi = 1.0 / torch.where(z.abs() < 1e-9, 1e-9, z)
     u = K[0, 0] * pc[..., 0] * zi + K[0, 2]
@@ -59,8 +74,8 @@ def search_by_projection(
     visible = map_valid & (z > 0.1) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
 
     # isInFrustum gates: camera centre, viewing ray, scale envelope
-    C = -(R.T @ t)
-    view = map_pts - C[None, :]
+    C = -(R.T @ t) if R.dim() == 2 else -(R.transpose(-1, -2) @ t[..., None])[..., 0]
+    view = map_pts - C[..., None, :]
     dist = torch.linalg.vector_norm(view, dim=-1)
     has = pt_dmax > 0
     dist_ok = (dist >= 0.8 * pt_dmin) & (dist <= 1.2 * pt_dmax)
@@ -68,7 +83,7 @@ def search_by_projection(
     visible = visible & (~has | (dist_ok & angle_ok))
     # predicted octave at this distance (MapPoint::PredictScale)
     ratio = pt_dmax.clamp_min(1e-9) / dist.clamp_min(1e-9)
-    pred = torch.ceil(torch.log(ratio.clamp_min(1e-9)) / math.log(scale_factor))
+    pred = torch.ceil(torch.log(ratio.clamp_min(1e-9)) / _log_f32(scale_factor))
     pred = pred.to(torch.int32).clamp(0, n_levels - 1)
     r_pt = torch.where(has, radius * scale_factor ** pred.to(torch.float32), 0.0)
     r_kp = radius * scale_factor ** kp_octave.to(torch.float32)  # [N]
@@ -82,22 +97,22 @@ def search_by_projection(
 
     rows = torch.arange(P, dtype=torch.int32, device=map_pts.device)
     key = torch.where(accept, best * P + rows, _SENTINEL)
-    min_key = torch.full((N,), _SENTINEL, dtype=torch.int32,
+    min_key = torch.full(lead + (N,), _SENTINEL, dtype=torch.int32,
                          device=map_pts.device)
     j = best_j.to(torch.int64)
-    min_key.scatter_reduce_(0, j, key, "amin")
-    keep = accept & (key == min_key[j])
+    min_key.scatter_reduce_(-1, j, key, "amin")
+    keep = accept & (key == min_key.gather(-1, j))
 
     kp_for_point = torch.where(keep, best_j, -1)
     # keypoint -> point: rows not kept write to a spare slot N, dropped
-    point_for_kp = torch.full((N + 1,), -1, dtype=torch.int32,
+    point_for_kp = torch.full(lead + (N + 1,), -1, dtype=torch.int32,
                               device=map_pts.device)
-    point_for_kp.scatter_(0, torch.where(keep, j, N), rows)
+    point_for_kp.scatter_(-1, torch.where(keep, j, N), rows.expand(j.shape))
     return ProjMatchResult(
         kp_for_point=kp_for_point,
-        point_for_kp=point_for_kp[:N],
+        point_for_kp=point_for_kp[..., :N],
         uv_proj=uv,
-        n_matches=keep.sum(dtype=torch.int32),
-        n_visible=visible.sum(dtype=torch.int32),
+        n_matches=keep.sum(dim=-1, dtype=torch.int32),
+        n_visible=visible.sum(dim=-1, dtype=torch.int32),
         visible=visible,
     )

@@ -7,7 +7,8 @@ with the triangle-kernel matrices of ``_resize_matrix``, re-derived here in
 numpy; both extraction paths take their levels from it, so they see the
 same pixels. The blur keeps the JAX tap order (rows, then columns, each a
 left-to-right sum of ``k[i] * shifted``) because descriptors compare
-``rint(blur)`` and another order can move a value across .5.
+``rint(blur)`` and another order can move a value across .5. Every image
+function also takes a leading batch axis ``[B, H, W]``.
 """
 
 from __future__ import annotations
@@ -27,8 +28,11 @@ __all__ = ["reflect_pad", "gauss_taps", "gaussian_blur", "resize_matrix",
 
 
 def reflect_pad(img: torch.Tensor, pad: int) -> torch.Tensor:
-    """BORDER_REFLECT_101 padding of a 2-D image (edge not duplicated)."""
-    return F.pad(img[None, None], (pad, pad, pad, pad), mode="reflect")[0, 0]
+    """BORDER_REFLECT_101 padding of a [(B,) H, W] image (edge not
+    duplicated)."""
+    h, w = img.shape[-2:]
+    out = F.pad(img.reshape((-1, 1, h, w)), (pad, pad, pad, pad), mode="reflect")
+    return out.reshape(img.shape[:-2] + out.shape[-2:])
 
 
 def gauss_taps(ksize: int = 7, sigma: float = 2.0,
@@ -48,9 +52,9 @@ def gaussian_blur(img: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     ksize = taps.shape[0]
     r = ksize // 2
     p = reflect_pad(img, r)
-    h, w = img.shape
-    horiz = sum(taps[i] * p[:, i: i + w] for i in range(ksize))
-    return sum(taps[i] * horiz[i: i + h, :] for i in range(ksize))
+    h, w = img.shape[-2:]
+    horiz = sum(taps[i] * p[..., :, i: i + w] for i in range(ksize))
+    return sum(taps[i] * horiz[..., i: i + h, :] for i in range(ksize))
 
 
 @functools.lru_cache(maxsize=64)

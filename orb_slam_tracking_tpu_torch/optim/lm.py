@@ -1,12 +1,13 @@
 """Levenberg-Marquardt pieces (counterpart of ``optim/lm.py``): the Huber
-IRLS weight, Nielsen's damping schedule, the damped 6x6 solve and the
+IRLS weight, Nielsen's damping schedule, the damped 6x6 solve (pivoted LU,
+or for batched systems the closed-form block-Schur ``solve_spd6``) and the
 closed-form 3x3 inverse of bundle adjustment's point blocks."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["huber_weight", "inv3x3", "nielsen_update", "solve_damped"]
+__all__ = ["huber_weight", "inv3x3", "nielsen_update", "solve_damped", "solve_spd6"]
 
 
 def huber_weight(chi2: torch.Tensor, delta2: float) -> torch.Tensor:
@@ -25,14 +26,41 @@ def nielsen_update(lam: torch.Tensor, nu: torch.Tensor, rho: torch.Tensor):
     return lam_new, nu_new
 
 
-def solve_damped(H: torch.Tensor, b: torch.Tensor,
-                 lam: torch.Tensor) -> torch.Tensor:
-    """Solve (H + lam * diag(H)) dx = b by pivoted LU.
+def solve_spd6(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve symmetric positive-definite 6x6 systems ``M [..., 6, 6] x =
+    b [..., 6]`` in closed form, by 3x3 block Schur elimination with
+    adjugate inverses: ``S = D - B^T A^-1 B``. Valid for the damped normal
+    equations (SPD by construction, the damping floor keeping A and S away
+    from singularity); branch-free, so a batch of systems is a handful of
+    elementwise passes where LU would loop its pivots per system."""
+    A = M[..., :3, :3]
+    Bm = M[..., :3, 3:]
+    D = M[..., 3:, 3:]
+    b1 = b[..., :3]
+    b2 = b[..., 3:]
+    Ainv = inv3x3(A)
+    AinvB = Ainv @ Bm
+    S = D - Bm.transpose(-1, -2) @ AinvB
+    Sinv = inv3x3(S)
+    Ainv_b1 = torch.einsum("...ij,...j->...i", Ainv, b1)
+    rhs2 = b2 - torch.einsum("...ji,...j->...i", Bm, Ainv_b1)
+    x2 = torch.einsum("...ij,...j->...i", Sinv, rhs2)
+    x1 = Ainv_b1 - torch.einsum("...ij,...j->...i", AinvB, x2)
+    return torch.cat([x1, x2], dim=-1)
+
+
+def solve_damped(H: torch.Tensor, b: torch.Tensor, lam: torch.Tensor,
+                 batched: bool = False) -> torch.Tensor:
+    """Solve (H + lam * diag(H)) dx = b: with ``batched`` a [..., 6, 6] H by
+    the closed form ``solve_spd6`` (the JAX package's switch, which its
+    multi-sequence runners set), else by pivoted LU.
 
     ``solve_ex`` skips the error check, so no host sync happens here; a
     singular system yields non-finite dx, which the caller's cost test
     rejects."""
-    Hd = H + lam * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1))
+    Hd = H + lam[..., None, None] * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1))
+    if batched and H.shape[-1] == 6:
+        return solve_spd6(Hd, b)
     return torch.linalg.solve_ex(Hd, b[..., None])[0][..., 0]
 
 

@@ -7,6 +7,12 @@ at delta^2 = 5.991 (widened in the first round), ORB-SLAM's reclassify-
 and-reoptimise rounds and Nielsen damping. Everything is f32 and
 fixed-shape; the LM iterations are a Python loop of ``torch.where``
 selects carrying the speculative-accept state, so nothing syncs the host.
+
+A leading batch axis on the pose and the observations (``R0 [B, 3, 3]``,
+``pts [B, N, 3]``, ...; ``K`` shared) optimises B poses at once, each with
+its own damping schedule, as the JAX function under ``vmap``: the
+multi-sequence runners' form. Every reduction runs over the observation
+axis only, so a batched pose sees the same sums as its unbatched call.
 """
 
 from __future__ import annotations
@@ -24,17 +30,17 @@ _CHI2_TH = 5.991  # 95% for 2 dof
 
 
 class PoseOptResult(NamedTuple):
-    R: torch.Tensor          # [3, 3] optimised world-to-camera rotation
-    t: torch.Tensor          # [3]
-    inlier: torch.Tensor     # [N] bool final inlier classification
-    n_inliers: torch.Tensor  # [] int32
-    chi2: torch.Tensor       # [] final cost over inliers
+    R: torch.Tensor          # [(B,) 3, 3] optimised world-to-camera rotation
+    t: torch.Tensor          # [(B,) 3]
+    inlier: torch.Tensor     # [(B,) N] bool final inlier classification
+    n_inliers: torch.Tensor  # [(B,)] int32
+    chi2: torch.Tensor       # [(B,)] final cost over inliers
 
 
 def _residuals_jac(R, t, pts, uv, fx, fy, cx, cy):
-    """Residuals [N, 2], Jacobians [N, 2, 6] w.r.t. xi = (omega, v) with
-    T <- exp(xi) T, and depths [N]."""
-    pc = pts @ R.T + t
+    """Residuals [(B,) N, 2], Jacobians [(B,) N, 2, 6] w.r.t. xi = (omega, v)
+    with T <- exp(xi) T, and depths [(B,) N]."""
+    pc = pts @ R.transpose(-1, -2) + t[..., None, :]
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
     zi = 1.0 / torch.where(z.abs() < 1e-9, 1e-9, z)
     u = fx * x * zi + cx
@@ -57,11 +63,11 @@ def _robust_cost(r, inv_sigma2, active, use_huber: bool, delta2: float):
                           2.0 * torch.sqrt(delta2 * chi2) - delta2)
     else:
         rho = chi2
-    return torch.where(active, rho, 0.0).sum()
+    return torch.where(active, rho, 0.0).sum(dim=-1)
 
 
 def _lm_rounds(R, t, r, J, z, pts, uv, inv_sigma2, active, fx, fy, cx, cy,
-               iters: int, use_huber: bool, delta_scale: float):
+               iters: int, use_huber: bool, delta_scale: float, batched_solve: bool):
     """``iters`` LM steps over the active subset. The carry holds the
     linearisation at the accepted pose, so each step costs one
     residual+Jacobian pass at the candidate; a rejected step reuses the
@@ -69,35 +75,38 @@ def _lm_rounds(R, t, r, J, z, pts, uv, inv_sigma2, active, fx, fy, cx, cy,
     delta2 = _CHI2_TH * delta_scale
     # device-side fills, not host->device copies: the step stays free of
     # host syncs
-    lam = torch.full((), 1e-4, dtype=torch.float32, device=R.device)
-    nu = torch.full((), 2.0, dtype=torch.float32, device=R.device)
+    lam = torch.full(R.shape[:-2], 1e-4, dtype=torch.float32, device=R.device)
+    nu = torch.full(R.shape[:-2], 2.0, dtype=torch.float32, device=R.device)
+    batch = R.dim() > 2
     cost = _robust_cost(r, inv_sigma2, active, use_huber, delta2)
     for _ in range(iters):
         chi2 = (r * r).sum(dim=-1) * inv_sigma2
         w = huber_weight(chi2, delta2) if use_huber else torch.ones_like(chi2)
         w = torch.where(active, w * inv_sigma2, 0.0)
-        Jw = J * w[:, None, None]
-        H = torch.einsum("nri,nrj->ij", Jw, J)
-        b = torch.einsum("nri,nr->i", Jw, r)
-        dx = solve_damped(H, -b, lam)
+        Jw = J * w[..., None, None]
+        H = torch.einsum("...nri,...nrj->...ij", Jw, J)
+        b = torch.einsum("...nri,...nr->...i", Jw, r)
+        dx = solve_damped(H, -b, lam, batched=batched_solve)
         dR, dt = se3.se3_exp(dx)
         R_new = dR @ R
-        t_new = dR @ t + dt
+        t_new = (dR @ t[..., None])[..., 0] + dt if batch else dR @ t + dt
         r_new, J_new, z_new = _residuals_jac(R_new, t_new, pts, uv,
                                              fx, fy, cx, cy)
         new_cost = _robust_cost(r_new, inv_sigma2, active, use_huber, delta2)
         # predicted decrease of the damped quadratic model (g2o's rho
         # denominator): 0.5 * dx^T (lam * D dx - b)
-        pred = 0.5 * torch.dot(dx, lam * torch.diagonal(H) * dx - b)
+        step = lam[..., None] * torch.diagonal(H, dim1=-2, dim2=-1) * dx - b
+        pred = 0.5 * ((dx * step).sum(dim=-1) if batch else torch.dot(dx, step))
         rho_gain = (cost - new_cost) / pred.abs().clamp_min(1e-9)
         lam, nu = nielsen_update(lam, nu, rho_gain)
         good = new_cost < cost
-        R = torch.where(good, R_new, R)
-        t = torch.where(good, t_new, t)
+        g1, g2 = good[..., None], good[..., None, None]
+        R = torch.where(g2, R_new, R)
+        t = torch.where(g1, t_new, t)
         cost = torch.where(good, new_cost, cost)
-        r = torch.where(good, r_new, r)
-        J = torch.where(good, J_new, J)
-        z = torch.where(good, z_new, z)
+        r = torch.where(g2, r_new, r)
+        J = torch.where(g2[..., None], J_new, J)
+        z = torch.where(g1, z_new, z)
     return R, t, cost, r, J, z
 
 
@@ -105,13 +114,18 @@ def optimize_pose(R0: torch.Tensor, t0: torch.Tensor, pts: torch.Tensor,
                   uv: torch.Tensor, inv_sigma2: torch.Tensor,
                   valid: torch.Tensor, K: torch.Tensor, rounds: int = 4,
                   iters_per_round: int = 10,
-                  coarse_delta_scale: float = 25.0) -> PoseOptResult:
+                  coarse_delta_scale: float = 25.0,
+                  batched_solve: bool = False) -> PoseOptResult:
     """Optimise a world-to-camera pose against known 3-D points.
 
     R0, t0: initial pose; pts [N, 3] world points; uv [N, 2] observed
     undistorted pixels; inv_sigma2 [N] per-observation information; valid
     [N] mask; K [3, 3]. The first round runs with the Huber threshold
     widened by ``coarse_delta_scale``; rounds 3+ drop the robust kernel.
+    A leading [B] on everything but K optimises B poses at once.
+    ``batched_solve`` takes the 6x6 steps by the closed form ``solve_spd6``
+    in place of LU (the JAX package's switch; its multi-sequence runners
+    set it, batched or not).
     """
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     R, t = R0, t0
@@ -121,12 +135,12 @@ def optimize_pose(R0: torch.Tensor, t0: torch.Tensor, pts: torch.Tensor,
         R, t, _, r, J, z = _lm_rounds(
             R, t, r, J, z, pts, uv, inv_sigma2, inlier, fx, fy, cx, cy,
             iters_per_round, use_huber=rnd < 2,
-            delta_scale=coarse_delta_scale if rnd == 0 else 1.0)
+            delta_scale=coarse_delta_scale if rnd == 0 else 1.0, batched_solve=batched_solve)
         chi2 = (r * r).sum(dim=-1) * inv_sigma2
         inlier = valid & (chi2 <= _CHI2_TH) & (z > 0)
     chi2 = (r * r).sum(dim=-1) * inv_sigma2
     return PoseOptResult(
         R=R, t=t, inlier=inlier,
-        n_inliers=inlier.sum(dtype=torch.int32),
-        chi2=torch.where(inlier, chi2, 0.0).sum(),
+        n_inliers=inlier.sum(dim=-1, dtype=torch.int32),
+        chi2=torch.where(inlier, chi2, 0.0).sum(dim=-1),
     )

@@ -293,12 +293,24 @@ def make_device_insert_keyframe(cam_cfg: CameraConfig, orb_cfg: OrbConfig,
 
 
 class DeviceLoopOutputs(NamedTuple):
-    R: torch.Tensor            # [T, 3, 3]
-    t: torch.Tensor            # [T, 3]
-    n_inliers: torch.Tensor    # [T] int32
-    n_kps: torch.Tensor        # [T] int32
-    inserted_kf: torch.Tensor  # [T] bool
-    lost: torch.Tensor         # [T] bool
+    R: torch.Tensor            # [(B,) T, 3, 3]
+    t: torch.Tensor            # [(B,) T, 3]
+    n_inliers: torch.Tensor    # [(B,) T] int32
+    n_kps: torch.Tensor        # [(B,) T] int32
+    inserted_kf: torch.Tensor  # [(B,) T] bool
+    lost: torch.Tensor         # [(B,) T] bool
+
+
+def _index_batch(tree, b):
+    """Row ``b`` (an int or an index tensor) of every tensor of a NamedTuple
+    with a leading batch axis, e.g. one sequence's ``SlamMap``."""
+    return type(tree)(*(x[b] if isinstance(x, torch.Tensor) else _index_batch(x, b)
+                        for x in tree))
+
+
+def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M [..., 3, 3] @ v [..., 3]`` per batch row (one vector: ``mv``)."""
+    return M @ v if v.dim() == 1 else (M @ v[..., None])[..., 0]
 
 
 class DeviceSequenceLoop:
@@ -308,19 +320,30 @@ class DeviceSequenceLoop:
     ``loop(images [T, H, W], m0, R0 [3,3], t0 [3], K [3,3], frame_id0: int,
     kf_count0: int, kf_ref_inliers0) -> (final SlamMap, DeviceLoopOutputs)``.
     The initial map comes from a bootstrap (the port's ``Tracker`` until
-    WORKING). ``step``, ``recover`` and ``insert`` are attributes, so a
-    profiler can wrap each stage."""
+    WORKING). A leading [B] on ``images``, every field of ``m0``, ``R0``
+    and ``t0``, with B ints for ``frame_id0``, ``kf_count0`` and
+    ``kf_ref_inliers0``, runs B sequences at once (``K`` shared), and every
+    output then has it: the tracking step runs batched, and the recovery
+    tier and the keyframe insert per sequence on its rows of the map (the
+    multi-sequence mapping runner, ``parallel.multiseq``). One sequence
+    takes the same frame loop with the step unbatched, its tensors seen as
+    a batch of one where a row is read or written, so that its results
+    stay those of the single-sequence step bit for bit (a step batched at
+    B = 1 sums its pose LM in another order). ``step``, ``recover`` and
+    ``insert`` are attributes, so
+    a profiler can wrap each stage. ``batched_solve`` takes the pose LMs'
+    6x6 steps in closed form (``optim.lm.solve_spd6``), as the JAX loop
+    under its multi-sequence runner."""
 
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: OrbConfig, matcher_cfg: MatcherConfig,
                  tcfg: TrackerConfig, tri_cap: int = 256, obs_cap: int = 512,
                  batched_solve: bool = False, device: torch.device | str = DEFAULT_DEVICE):
-        if batched_solve:
-            raise ValueError("batched_solve=True is the multi-sequence loop's (parallel/"
-                             "multiseq.py), which the port has not ported yet")
+        self.batched_solve = batched_solve
         self.cam_cfg, self.orb_cfg, self.matcher_cfg, self.tcfg = (
             cam_cfg, orb_cfg, matcher_cfg, tcfg)
         self.device = resolve_device(device)
-        self.step = TrackingStep(cam_cfg, orb_cfg, matcher_cfg, tcfg, device=self.device)
+        self.step = TrackingStep(cam_cfg, orb_cfg, matcher_cfg, tcfg,
+                                 batched_solve=batched_solve, device=self.device)
         self.insert = make_device_insert_keyframe(cam_cfg, orb_cfg, matcher_cfg, tcfg,
                                                   tri_cap, obs_cap)
 
@@ -343,7 +366,7 @@ class DeviceSequenceLoop:
             inv_s2 = 1.0 / scale ** (2.0 * r.kps.octave[safe].to(torch.float32))
             res = optimize_pose(R0, t0, m.pts, r.xy_un[safe], inv_s2, pm.kp_for_point >= 0, K,
                                 rounds=tcfg.pose_opt_rounds, iters_per_round=tcfg.pose_opt_iters,
-                                **kw)
+                                batched_solve=self.batched_solve, **kw)
             return pm, res
 
         pmw, resw = stage(R, t, tcfg.projection_radius * tcfg.lost_recovery_radius_scale,
@@ -356,71 +379,96 @@ class DeviceSequenceLoop:
                 torch.where(ok2, resn.inlier, resw.inlier),
                 torch.where(ok2, pmn.visible, pmw.visible))
 
-    def __call__(self, images, m: SlamMap, R, t, K, frame_id0: int, kf_count0: int,
-                 kf_ref_inliers0):
+    def __call__(self, images, m: SlamMap, R, t, K, frame_id0, kf_count0, kf_ref_inliers0):
         tcfg = self.tcfg
+        lead = images.shape[:-3]  # (B,), or () for one sequence
         dev = m.pts.device
-        vel_R = torch.eye(3, device=dev)
-        vel_t = torch.zeros(3, device=dev)
-        have_vel = torch.zeros((), dtype=torch.bool, device=dev)
-        ref_inl = torch.as_tensor(kf_ref_inliers0, dtype=torch.int32, device=dev)
-        fid, kfc, fsk = int(frame_id0), int(kf_count0), 0
+
+        def rows(x):
+            """A batch view: one sequence's tensors as a batch of one."""
+            if lead:
+                return x
+            return x[None] if isinstance(x, torch.Tensor) else _index_batch(x, None)
+
+        m = SlamMap(*(x.clone() for x in m))  # the inserts write their rows in place
+        vel_R = torch.eye(3, device=dev).expand(lead + (3, 3)).clone()
+        vel_t = torch.zeros(lead + (3,), device=dev)
+        have_vel = torch.zeros(lead, dtype=torch.bool, device=dev)
+        ref_inl = torch.as_tensor(kf_ref_inliers0, dtype=torch.int32, device=dev).clone()
+        fid = [int(x) for x in (frame_id0 if lead else [frame_id0])]
+        kfc = [int(x) for x in (kf_count0 if lead else [kf_count0])]
+        fsk = torch.zeros(lead, dtype=torch.int32, device=dev)  # frames since the last insert
         recovery = tcfg.lost_recovery_radius_scale > 0
-        outs = []
-        for image in images:
+        outs, inserted = [], []
+        for image in images.unbind(len(lead)):
             use_vel = have_vel & tcfg.use_motion_model
-            R_pred = torch.where(use_vel, vel_R @ R, R)
-            t_pred = torch.where(use_vel, vel_R @ t + vel_t, t)
+            R_pred = torch.where(use_vel[..., None, None], vel_R @ R, R)
+            t_pred = torch.where(use_vel[..., None], _matvec(vel_R, t) + vel_t, t)
             r = self.step(image, m.pts, m.desc, m.pt_valid, m.pt_normal, m.pt_dmin,
                           m.pt_dmax, R_pred, t_pred, R, t, K)
-            fsk += 1
+            fsk = fsk + 1
             good0_t = r.n_inliers >= tcfg.min_tracked_inliers
 
             def need_keyframe(good, n_inl):
-                if fsk < tcfg.min_frames + 1:
-                    return torch.zeros((), dtype=torch.bool, device=dev)
-                return good & ((fsk >= tcfg.max_frames)
-                               | (n_inl.to(torch.float32) < 0.9 * ref_inl.to(torch.float32))
-                               | (n_inl < tcfg.min_tracked_inliers * 5))
+                return (good & (fsk >= tcfg.min_frames + 1)
+                        & ((fsk >= tcfg.max_frames)
+                           | (n_inl.to(torch.float32) < 0.9 * ref_inl.to(torch.float32))
+                           | (n_inl < tcfg.min_tracked_inliers * 5)))
 
-            # one host read: did the step hold, and is a keyframe then due
-            good0, need_kf = torch.stack([good0_t, need_keyframe(good0_t, r.n_inliers)]).tolist()
-            if good0 or not recovery:
-                R_opt, t_opt, n_inl = r.R, r.t, r.n_inliers
-                kp_for_point, inlier, visible = r.kp_for_point, r.inlier, r.visible
-            else:
-                R_opt, t_opt, n_inl, kp_for_point, inlier, visible = self.recover(m, r, R, t, K)
-            good = good0_t if good0 or not recovery else n_inl >= tcfg.min_tracked_inliers
+            # one host read: which steps held, and where a keyframe is then due
+            good0, need_kf = torch.stack(
+                [good0_t, need_keyframe(good0_t, r.n_inliers)]).reshape(2, -1).tolist()
+            R_opt, t_opt, n_inl = r.R, r.t, r.n_inliers
+            kp_for_point, inlier, visible = r.kp_for_point, r.inlier, r.visible
+            good = good0_t
+            lost = [b for b, g in enumerate(good0) if not g] if recovery else []
+            if lost:
+                R_opt, t_opt, n_inl, kp_for_point, inlier, visible = (
+                    x.clone() for x in (R_opt, t_opt, n_inl, kp_for_point, inlier, visible))
+                dsts = [rows(x) for x in (R_opt, t_opt, n_inl, kp_for_point, inlier, visible)]
+                for b in lost:
+                    got = self.recover(_index_batch(rows(m), b), _index_batch(rows(r), b),
+                                       rows(R)[b], rows(t)[b], K)
+                    for dst, src in zip(dsts, got):
+                        dst[b] = src
+                good = n_inl >= tcfg.min_tracked_inliers
+                # the second host read, for the recovered sequences
+                due = need_keyframe(good, n_inl).reshape(-1).tolist()
+                for b in lost:
+                    need_kf[b] = due[b]
             # mnVisible / mnFound tallies (culling input, host parity)
             found = (kp_for_point >= 0) & m.pt_valid
             m = m._replace(pt_visible=m.pt_visible + (visible & m.pt_valid).to(torch.int32),
                            pt_found=m.pt_found + found.to(torch.int32))
-            R_new = torch.where(good, R_opt, R)
-            t_new = torch.where(good, t_opt, t)
+            R_new = torch.where(good[..., None, None], R_opt, R)
+            t_new = torch.where(good[..., None], t_opt, t)
             # velocity only from continuous good frames: a recovered pose
             # jumped, so its velocity is stale
-            if good0:
-                vel_R = r.R @ R.T
-                vel_t = r.t - vel_R @ t
-                have_vel = torch.ones((), dtype=torch.bool, device=dev)
-            else:
-                have_vel = have_vel & ~good
-                if recovery:  # the second host read
-                    need_kf = bool(need_keyframe(good, n_inl))
-            if need_kf:
-                m, _, ref_inl = self.insert(
-                    m, R_new, t_new, K, fid, kfc, r.kps.desc, r.kps.octave, r.kps.angle_deg,
-                    r.kps.valid, r.xy_un, kp_for_point, inlier)
-                kfc += 1
-                fsk = 0
+            v_R = r.R @ R.transpose(-1, -2)
+            vel_t = torch.where(good0_t[..., None], r.t - _matvec(v_R, t), vel_t)
+            vel_R = torch.where(good0_t[..., None, None], v_R, vel_R)
+            have_vel = good0_t | (have_vel & ~good)
+            rb = rows(r)
+            for b in (b for b, due in enumerate(need_kf) if due):
+                m_b, _, support = self.insert(
+                    _index_batch(rows(m), b), rows(R_new)[b], rows(t_new)[b], K, fid[b], kfc[b],
+                    rb.kps.desc[b], rb.kps.octave[b], rb.kps.angle_deg[b], rb.kps.valid[b],
+                    rb.xy_un[b], rows(kp_for_point)[b], rows(inlier)[b])
+                for dst, src in zip(rows(m), m_b):
+                    dst[b] = src
+                # selects: writing a number into a device tensor (``[b] = 0``)
+                # synchronizes with the host
+                row_b = torch.arange(len(fid), device=dev).reshape(lead) == b
+                ref_inl = torch.where(row_b, support, ref_inl)
+                fsk = torch.where(row_b, 0, fsk)
+                kfc[b] += 1
             R, t = R_new, t_new
-            fid += 1
-            outs.append((R_new, t_new, n_inl, r.n_kps, need_kf, ~good))
-        Rs, ts, n_inls, n_kps, ins, lost = zip(*outs)
-        return m, DeviceLoopOutputs(
-            R=torch.stack(Rs), t=torch.stack(ts), n_inliers=torch.stack(n_inls),
-            n_kps=torch.stack(n_kps), inserted_kf=torch.tensor(ins, device=dev),
-            lost=torch.stack(lost))
+            fid = [x + 1 for x in fid]
+            outs.append((R_new, t_new, n_inl, r.n_kps, ~good))
+            inserted.append(need_kf)
+        R, t, n_inl, n_kps, lost = (torch.stack(x, dim=len(lead)) for x in zip(*outs))
+        inserted_kf = torch.tensor(inserted, device=dev).reshape((-1,) + lead).movedim(0, -1)
+        return m, DeviceLoopOutputs(R, t, n_inl, n_kps, inserted_kf, lost)
 
 
 def make_device_sequence_loop(cam_cfg: CameraConfig, orb_cfg: OrbConfig,
@@ -429,6 +477,7 @@ def make_device_sequence_loop(cam_cfg: CameraConfig, orb_cfg: OrbConfig,
                               batched_solve: bool = False,
                               device: torch.device | str = DEFAULT_DEVICE) -> DeviceSequenceLoop:
     """The sequence loop on ``device`` (the card unless ``device="cpu"``);
-    ``batched_solve=True`` (multi-sequence) raises until that slice lands."""
+    ``batched_solve=True`` is the JAX package's multi-sequence form of the
+    pose LM's solve."""
     return DeviceSequenceLoop(cam_cfg, orb_cfg, matcher_cfg, tcfg, tri_cap, obs_cap,
                               batched_solve, device)

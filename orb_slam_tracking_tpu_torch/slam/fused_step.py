@@ -10,8 +10,14 @@ Per frame:
 (resize matrices, Gaussian taps, BRIEF pattern), built once. The step has
 fixed shapes and validity masks and never syncs the host, so it can later
 be captured as one CUDA graph. On the card it launches one FAST kernel,
-one moments kernel, one BRIEF kernel and two fused Hamming row-minimum
-kernels (``hamming_gated_min``, one per match).
+one orient-and-describe kernel and two fused Hamming row-minimum kernels
+(``hamming_gated_min``, one per match).
+
+The same module tracks B sequences at once when every per-sequence input
+carries a leading [B] (``K`` shared): the multi-sequence runners' step
+(``parallel/multiseq.py``, the JAX package's ``vmap`` of this step). It
+still launches 1 FAST, 1 orient-and-describe and 2 Hamming kernels a
+frame, whatever B is.
 """
 
 from __future__ import annotations
@@ -33,17 +39,17 @@ __all__ = ["FusedStepResult", "TrackingStep"]
 
 
 class FusedStepResult(NamedTuple):
-    R: torch.Tensor             # [3, 3] optimised world-to-camera
-    t: torch.Tensor             # [3]
-    n_inliers: torch.Tensor     # [] int32
-    n_matches1: torch.Tensor    # [] stage-1 projection matches
-    n_matches2: torch.Tensor    # [] stage-2 (tight) matches
-    n_kps: torch.Tensor         # [] extracted keypoints
-    kp_for_point: torch.Tensor  # [P] final association
-    inlier: torch.Tensor        # [P] final pose-opt inlier mask
-    visible: torch.Tensor       # [P] frustum visibility
+    R: torch.Tensor             # [(B,) 3, 3] optimised world-to-camera
+    t: torch.Tensor             # [(B,) 3]
+    n_inliers: torch.Tensor     # [(B,)] int32
+    n_matches1: torch.Tensor    # [(B,)] stage-1 projection matches
+    n_matches2: torch.Tensor    # [(B,)] stage-2 (tight) matches
+    n_kps: torch.Tensor         # [(B,)] extracted keypoints
+    kp_for_point: torch.Tensor  # [(B,) P] final association
+    inlier: torch.Tensor        # [(B,) P] final pose-opt inlier mask
+    visible: torch.Tensor       # [(B,) P] frustum visibility
     kps: Keypoints              # the extracted keypoints
-    xy_un: torch.Tensor         # [N, 2] undistorted keypoint pixels
+    xy_un: torch.Tensor         # [(B,) N, 2] undistorted keypoint pixels
 
 
 class TrackingStep(nn.Module):
@@ -53,12 +59,14 @@ class TrackingStep(nn.Module):
     map_valid [P], map_normal [P,3], map_dmin [P], map_dmax [P],
     R_pred, t_pred, R0, t0, K) -> FusedStepResult``: ``R_pred/t_pred``
     centre the stage-1 search window, ``R0/t0`` seed the optimiser.
-    ``radius_scale`` widens the stage-1 window.
+    ``radius_scale`` widens the stage-1 window. ``batched_solve`` takes the
+    pose LM's 6x6 steps in closed form (``optim.lm.solve_spd6``), as the
+    JAX package's multi-sequence step does.
     """
 
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: OrbConfig,
                  matcher_cfg: MatcherConfig, tracker_cfg: TrackerConfig,
-                 radius_scale: float = 1.0,
+                 radius_scale: float = 1.0, batched_solve: bool = False,
                  device: torch.device | str = DEFAULT_DEVICE):
         super().__init__()
         device = resolve_device(device)
@@ -67,6 +75,7 @@ class TrackingStep(nn.Module):
         self.matcher_cfg = matcher_cfg
         self.tracker_cfg = tracker_cfg
         self.radius = tracker_cfg.projection_radius * radius_scale
+        self.batched_solve = batched_solve
         full_f32(device)
         self.consts = ExtractorConstants(cam_cfg.height, cam_cfg.width,
                                          orb_cfg, device)
@@ -74,10 +83,18 @@ class TrackingStep(nn.Module):
     def forward(self, image, map_pts, map_desc, map_valid, map_normal,
                 map_dmin, map_dmax, R_pred, t_pred, R0, t0, K
                 ) -> FusedStepResult:
+        kps = orb_extract(image, self.orb_cfg, self.consts)
+        xy_un = camera.undistort_pixels(self.cam_cfg, kps.xy)
+        return self.track(kps, xy_un, map_pts, map_desc, map_valid, map_normal, map_dmin,
+                          map_dmax, R_pred, t_pred, R0, t0, K)
+
+    def track(self, kps: Keypoints, xy_un, map_pts, map_desc, map_valid, map_normal,
+              map_dmin, map_dmax, R_pred, t_pred, R0, t0, K) -> FusedStepResult:
+        """The step after the extraction: both matches and pose LMs on given
+        keypoints and their undistorted pixels (the multi-sequence init
+        runner tracks its WORKING sequences' keypoints so)."""
         cam, ocfg, tcfg = self.cam_cfg, self.orb_cfg, self.tracker_cfg
         scale = ocfg.scale_factor
-        kps = orb_extract(image, ocfg, self.consts)
-        xy_un = camera.undistort_pixels(cam, kps.xy)
 
         def match(R, t, rad):
             return search_by_projection(
@@ -89,11 +106,11 @@ class TrackingStep(nn.Module):
 
         def optimize(R, t, pm):
             safe = pm.kp_for_point.clamp_min(0).to(torch.int64)
-            inv_s2 = 1.0 / scale ** (2.0 * kps.octave[safe].to(torch.float32))
+            inv_s2 = 1.0 / scale ** (2.0 * kps.octave.gather(-1, safe).to(torch.float32))
             return optimize_pose(
-                R, t, map_pts, xy_un[safe], inv_s2, pm.kp_for_point >= 0, K,
-                rounds=tcfg.pose_opt_rounds,
-                iters_per_round=tcfg.pose_opt_iters)
+                R, t, map_pts, torch.take_along_dim(xy_un, safe[..., None], dim=-2), inv_s2,
+                pm.kp_for_point >= 0, K, rounds=tcfg.pose_opt_rounds,
+                iters_per_round=tcfg.pose_opt_iters, batched_solve=self.batched_solve)
 
         pm1 = match(R_pred, t_pred, self.radius)
         res1 = optimize(R0, t0, pm1)

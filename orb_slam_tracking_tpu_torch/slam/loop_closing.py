@@ -89,7 +89,7 @@ def _grow_sim3_matches(g: Sim3, x1, v1, d1, uv1, o1, x2, v2, d2, uv2, o2, K,
             & (d_fwd <= (r1 * r1)[:, None]) & (d_bwd <= (r2 * r2)[None, :]) & (D <= th))
     best, best_j = torch.where(elig, D, BIG).min(dim=1)
     best_j = best_j.to(torch.int32)
-    keep = _mutual((best < BIG)[None], best[None], best_j[None], x2.shape[0])[0]
+    keep = _mutual(best < BIG, best, best_j, x2.shape[0])
     return torch.where(keep, best_j, -1)
 
 

@@ -411,7 +411,22 @@ def test_loop_is_pure(boot):
         assert torch.equal(getattr(m1, f), getattr(m2, f)), f
 
 
-def test_batched_solve_is_refused():
-    with pytest.raises(ValueError, match="batched_solve"):
-        dm.make_device_sequence_loop(CFG.camera, CFG.orb, CFG.matcher, CFG.tracker,
-                                     batched_solve=True, device="cpu")
+def test_batched_solve_matches_jax(boot):
+    """``batched_solve=True`` (the multi-sequence runners' closed-form 6x6
+    solve, ``optim.lm.solve_spd6``) runs, and gives JAX's loop with the
+    same switch: 3 frames from the bootstrap, inserts on them, to
+    ``_assert_outputs_close``'s bounds."""
+    jcfg = jx_cfg(CFG)
+    run = jx_dm.make_device_sequence_loop(jcfg.camera, jcfg.orb, jcfg.matcher, jcfg.tracker,
+                                          batched_solve=True, **CAPS)
+    port = dm.make_device_sequence_loop(CFG.camera, CFG.orb, CFG.matcher, CFG.tracker,
+                                        batched_solve=True, device="cpu", **CAPS)
+    R, t, K, fid, kfc, ref = boot["state"]
+    imgs = boot["frames"][boot["start"]:boot["start"] + 3]
+    jm, jo = run(jnp.asarray(imgs), _jx_map(boot["fields"]), jnp.asarray(R), jnp.asarray(t),
+                 jnp.asarray(K), jnp.int32(fid), jnp.int32(kfc), jnp.int32(ref))
+    pm, po = port(_t(imgs), _port_map(boot), _t(R), _t(t), _t(K), fid, kfc, ref)
+    assert port.step.batched_solve and bool(po.inserted_kf.any())
+    _assert_outputs_close(jo, po)
+    for f in ("kf_valid", "kf_frame_id"):
+        np.testing.assert_array_equal(getattr(pm, f).numpy(), np.asarray(getattr(jm, f)), f)
