@@ -112,14 +112,34 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
    the host tracker with FAST and with Harris ranking, and by the device
    loop: per run the init frame and model, LOST frames, keyframes, ATE,
    RPE, frames/s, the frame decoder and the launches; 0 LOST and ATE
-   < 5 cm (BASELINE.json's intent).
+   < 5 cm (BASELINE.json's intent);
+14. the multi-device modes over ``torch.distributed`` (run after phase 11,
+   on its entry): world 1 on NCCL in this process (the tensor-parallel
+   matcher at the entry() frame's 1,024 keypoints against a 65,528-row map,
+   exactly ``match_descriptors`` and the plain chain, with one B3f
+   launch, B3f at that shape against its plain version, timed, with
+   ``torch.mm`` of bf16 planes and its bound; the point-sharded BA on
+   ``scripts/scaling_efficiency.py``'s strong-scaling problem within the
+   tests' bounds of ``bundle_adjust`` and of JAX's final cost; DP at B = 4
+   x 12 frames through the group of one, bit for bit the [B] runner); then
+   two spawned ranks on the one card over gloo with CUDA tensors (the
+   matcher equal to world 1's, the BA within bounds of world 1's, the
+   two-stage pipeline over 48 frames of the frozen map against the
+   sequential step on the card, n_inliers equal and poses within 1e-5 /
+   1e-4, DP across the 2 ranks within 1e-4 of world 1); NCCL world 2, one
+   rank a card, where the machine has two cards, or the line
+   ``[dist] nccl world 2: not run, 1 card``; ms a call or a solve,
+   frames/s and each stage's host and device ms, with the card's name and
+   power limit.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the one
 before it a JSON object of per-kernel results (launches counted on each
 path: tracking, init, tracker, tracker_rescue, loop_ratio, loop,
-device_loop, multiseq, multiseq_init, multiseq_mapping, per_level, tum,
-tum_harris, tum_device_loop; the batched kernels' numbers at B = 1, 4, 8
-under ``batched``); the
+device_loop, multiseq, multiseq_init, multiseq_mapping, dist_tp, dist_dp,
+dist_gloo2_tp, dist_gloo2_pipeline, dist_gloo2_dp (summed over the ranks;
+dist_nccl2_* with two cards), per_level, tum, tum_harris, tum_device_loop;
+the batched kernels' numbers at B = 1, 4, 8 under ``batched``, B3f's at
+the matcher's shape under ``dist_tp``); the
 last line is ``{"ok": true, "device": {...}}``. There is no CPU
 path: without a CUDA device the script raises.
 """
@@ -713,6 +733,11 @@ PER_LEVEL_RUNS = 5
 # initializes at frame 9), BASELINE.json's 5 cm accuracy intent
 TUM_FRAMES = 72
 TUM_ATE_M = 0.05
+# the multi-device paths (chip_smoke [dist]; path names end in the mode):
+# the kernels each launches
+PER_DIST_PATH = {"tp": ("hamming_gated_min",),
+                 "pipeline": ("fast_score", "orient_describe", "hamming_gated_min"),
+                 "dp": ("fast_score", "orient_describe", "hamming_gated_min")}
 
 
 def reset_counters():
@@ -2081,6 +2106,405 @@ def phase_multiseq(device, loop_entry, results):
         # LM's reordered sums carried through the inserts' local BA
         if not same_events or d_inl > 1 or dpose > MULTISEQ_MAP_POSE_TOL:
             raise AssertionError(f"mapping sequence {b} parts from the single-sequence loop")
+    return paths, e
+
+
+# the multi-device phase (parallel/{distributed,matcher_sharded,ba_sharded,
+# pipeline}.py and the DP group of the multi-sequence runners): the
+# tensor-parallel matcher at the entry() frame's 1,024 keypoints against
+# the largest map under JAX's int32 key bound that divides 1, 2, 4 and 8
+# ranks (8 x 8,191 rows); the sharded BA on scripts/scaling_efficiency.py's
+# strong-scaling problem (20 keyframes, 8,192 points, 40,960 observations,
+# the first two keyframes fixed, 10 iterations); the pipeline over 48
+# frames of the multiseq_entry() recipe's frozen map; DP at B = 4 x 12
+# frames over 2 ranks
+DIST_TP = {"queries": 1024, "map_rows": 8 * 8191, "clones": 300, "invalid": 0.05}
+DIST_BA = {"fixed": 2, "iterations": 10, "slack": 256, "runs": 3}
+DIST_PIPELINE_T = 48
+DIST_PIPELINE_PROFILE_T = 4
+DIST_DP = {"batch": 4, "frames": MULTISEQ_T}
+# the sharded-vs-single bounds of tests/test_torch_dist_ba.py (JAX's): final
+# cost relative, R and t, points; the pipeline's against the sequential
+# step (tests/test_pipeline.py:110-115): R, t
+DIST_BA_BOUNDS = (1e-3, 1e-3, 5e-3)
+DIST_PIPE_TOL = (1e-5, 1e-4)
+# the strong-scaling problem's final cost on the JAX package's 8-device
+# virtual CPU mesh (SCALING_r05.json, ba_strong): a correctness anchor
+DIST_BA_JAX_COST = 14336.07421875
+
+
+def _tp_inputs(device):
+    """The entry() frame's keypoint descriptors as the queries; a map of
+    random descriptors with noisy clones of 300 valid queries at random
+    rows and 5 % of its rows invalid (numpy, int32 words)."""
+    from orb_slam_tracking_tpu_torch.config import OrbConfig
+    from orb_slam_tracking_tpu_torch.entry import entry
+    from orb_slam_tracking_tpu_torch.ops.extractor import orb_extract
+
+    _, args = entry(device)
+    kps = orb_extract(args[0], OrbConfig(n_features=1000))
+    dq, vq = kps.desc.cpu().numpy(), kps.valid.cpu().numpy()
+    if dq.shape[0] != DIST_TP["queries"]:
+        raise AssertionError(f"{dq.shape[0]} query rows, expected {DIST_TP['queries']}")
+    rng = np.random.default_rng(10)
+    P = DIST_TP["map_rows"]
+    dm = rng.integers(0, 2 ** 32, (P, 8), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    src = rng.choice(np.where(vq)[0], DIST_TP["clones"], replace=False)
+    rows = rng.choice(P, DIST_TP["clones"], replace=False)
+    dm[rows] = dq[src]
+    flip = np.left_shift(1, rng.integers(0, 32, len(rows))).astype(np.uint32).view(np.int32)
+    dm[rows, rng.integers(0, 8, len(rows))] ^= flip
+    vm = rng.random(P) >= DIST_TP["invalid"]
+    return dq, vq, dm, vm
+
+
+def _ba_inputs(world):
+    """The strong-scaling problem, bucketed over ``world`` shards."""
+    from orb_slam_tracking_tpu_torch.parallel.ba_sharded import bucket_observations
+    from orb_slam_tracking_tpu_torch.utils.synthetic import strong_scaling_ba_problem
+
+    kf_R, kf_t, pts0, obs_kf, obs_pt, obs_uv, K = strong_scaling_ba_problem(0)
+    O, nK, nP = len(obs_kf), len(kf_R), len(pts0)
+    fixed = np.zeros(nK, bool)
+    fixed[:DIST_BA["fixed"]] = True
+    return (kf_R, kf_t, pts0) + bucket_observations(
+        obs_kf, obs_pt, obs_uv, np.ones(O, np.float32), np.ones(O, bool), nP, world,
+        O // world + DIST_BA["slack"]) + (fixed, np.ones(nP, bool), K)
+
+
+def _dist_ba(mesh, args):
+    """The sharded BA on this rank: (R, t, the rank's points, cost), host
+    ms per solve (the median of DIST_BA["runs"] after one warm-up)."""
+    from orb_slam_tracking_tpu_torch.parallel.ba_sharded import bundle_adjust_sharded
+    from orb_slam_tracking_tpu_torch.parallel.distributed import make_global_array, replicate
+
+    kf_R, kf_t, pts, bk, bp, buv, bw, bv, fixed, pv, K = args
+    rep = [replicate(mesh, a) for a in (kf_R, kf_t)]
+    sh = [make_global_array(mesh, a) for a in (pts, bk, bp, buv, bw, bv)]
+    tail = (replicate(mesh, fixed), make_global_array(mesh, pv), replicate(mesh, K))
+
+    def solve():
+        return bundle_adjust_sharded(*rep, *sh, *tail, iterations=DIST_BA["iterations"],
+                                     group=mesh.group)
+
+    out = solve()
+    times = []
+    for _ in range(DIST_BA["runs"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def _dist_dp(mesh, frames, args):
+    """DP across the group: (the runner's dict, launches, host s)."""
+    from orb_slam_tracking_tpu_torch.entry import DEVICE_LOOP_CONFIG as cfg
+    from orb_slam_tracking_tpu_torch.parallel.multiseq import make_multiseq_sequence_runner
+
+    run = make_multiseq_sequence_runner(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
+                                        device=mesh.device, group=mesh.group)
+    run(frames[:, :2], *args)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = run(frames, *args)
+    torch.cuda.synchronize()
+    return out, read_counters(), time.perf_counter() - t0
+
+
+def _own_device_ms(fn) -> float:
+    """This process's device ms in one ``fn()`` under ``torch.profiler``
+    (one call, so that every rank of a collective calls it once; nan where
+    the trace held no device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 if us > 0 else float("nan")
+
+
+def _dist_ranks(mesh, payload):
+    """One rank of a world of 2 (or more): the matcher, the BA, the
+    pipeline on ranks 0 and 1, DP; numbers and launches for the parent."""
+    import torch.distributed as dist
+
+    from orb_slam_tracking_tpu_torch.entry import DEVICE_LOOP_CONFIG as cfg
+    from orb_slam_tracking_tpu_torch.parallel.distributed import make_global_array, replicate
+    from orb_slam_tracking_tpu_torch.parallel.matcher_sharded import match_descriptors_tp
+    from orb_slam_tracking_tpu_torch.parallel.pipeline import make_pipelined_tracker
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, out = mesh.device, {"rank": mesh.rank, "device": str(mesh.device)}
+    dq, vq, dm, vm = payload["tp"]
+    tp_args = (replicate(mesh, dq), replicate(mesh, vq), make_global_array(mesh, dm),
+               make_global_array(mesh, vm))
+    reset_counters()
+    out["tp"] = match_descriptors_tp(*tp_args, group=mesh.group)
+    torch.cuda.synchronize()
+    out["tp_launches"] = read_counters()
+    out["tp_ms"] = time_ms(lambda: match_descriptors_tp(*tp_args, group=mesh.group))
+    out["ba"], out["ba_ms"] = _dist_ba(mesh, payload["ba"])
+
+    pp = payload["pipeline"]
+    pp_group = dist.new_group([0, 1])
+    if mesh.rank < 2:
+        run = make_pipelined_tracker(pp_group, cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
+                                     device=dev)
+        frames = torch.tensor(pp["frames"], device=dev)
+        rest = [torch.tensor(a, device=dev) for a in pp["args"]]
+        run(frames[:2], *rest)  # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        out["pp"] = run(frames, *rest)
+        torch.cuda.synchronize()
+        out["pp_s"], out["pp_stage_s"] = time.perf_counter() - t0, run.stage_s
+        out["pp_launches"] = read_counters()
+        out["pp_stage"] = run.stage
+        n = DIST_PIPELINE_PROFILE_T
+        out["pp_stage_device_ms"] = _own_device_ms(lambda: run(frames[:n], *rest)) / n
+
+    dp = payload["dp"]
+    out["dp"], out["dp_launches"], out["dp_s"] = _dist_dp(
+        mesh, torch.tensor(dp["frames"], device=dev),
+        [torch.tensor(a, device=dev) for a in dp["args"]])
+    return out
+
+
+def _ba_parts(ranks, key="ba"):
+    """(R, t, the whole map's points, cost) from every rank's BA."""
+    R, t, _, cost = ranks[0][key]
+    pts = np.concatenate([r[key][2] for r in ranks])
+    return np.asarray(R), np.asarray(t), pts, float(cost)
+
+
+def _ba_within(got, want, what):
+    rel, atol_pose, atol_pts = DIST_BA_BOUNDS
+    dc = abs(got[3] - want[3]) / want[3]
+    dR, dt = float(np.abs(got[0] - want[0]).max()), float(np.abs(got[1] - want[1]).max())
+    dp = float(np.abs(got[2] - want[2]).max())
+    log("dist", f"{what}: final cost {got[3]!r} against {want[3]!r} (relative {dc:.3g}); "
+        f"R {dR:.3g}, t {dt:.3g}, points {dp:.3g}")
+    if dc >= rel or dR > atol_pose or dt > atol_pose or dp > atol_pts:
+        raise AssertionError(f"{what} is outside the bounds {DIST_BA_BOUNDS}")
+
+
+def _check_world(name, ranks, w1, smi):
+    """A world of 2 held to world 1: the matcher exactly, the BA within
+    bounds, the pipeline against the sequential step, DP within the
+    multiseq bound; returns the paths' launches (summed over the ranks)."""
+    for r in ranks:
+        if not np.array_equal(r["tp"], w1["tp"]):
+            raise AssertionError(f"{name}: rank {r['rank']}'s matches differ from world 1's")
+    log("dist", f"{name}: the matcher's {len(w1['tp'])} matches ({int((w1['tp'] >= 0).sum())} "
+        f"kept) equal world 1's on every rank; {statistics.median(r['tp_ms'] for r in ranks):.3f} "
+        f"ms a call (median of the ranks' medians of {RUNS} CUDA-event calls; world 1 "
+        f"{w1['tp_ms']:.3f}, unsharded match_descriptors {w1['dense_ms']:.3f}); {smi}")
+    _ba_within(_ba_parts(ranks), w1["ba"], f"{name}: the sharded BA against world 1")
+    log("dist", f"{name}: BA {statistics.median(r['ba_ms'] for r in ranks):.1f} host ms a solve "
+        f"(world 1 {w1['ba_ms']:.1f}, bundle_adjust {w1['single_ms']:.1f}); {smi}")
+    pp = {r["pp_stage"]: r for r in ranks if "pp" in r}
+    seq, got = w1["seq"], pp[1]["pp"]
+    dR = float(np.abs(got.R - seq.R.cpu().numpy()).max())
+    dt = float(np.abs(got.t - seq.t.cpu().numpy()).max())
+    same = all(np.array_equal(getattr(got, f), getattr(seq, f).cpu().numpy())
+               for f in got._fields)
+    if not all(np.array_equal(getattr(pp[0]["pp"], f), getattr(got, f)) for f in got._fields):
+        raise AssertionError(f"{name}: the pipeline's results differ between its stages")
+    T = DIST_PIPELINE_T
+    log("dist", f"{name}: pipeline over {T} frames: {'bit for bit' if same else 'within'} the "
+        f"sequential step (R {dR:.3g}, t {dt:.3g}; n_inliers {int(got.n_inliers.min())}-"
+        f"{int(got.n_inliers.max())}); {T / pp[1]['pp_s']:.2f} frames/s (sequential "
+        f"{T / w1['seq_s']:.2f}); stage 0 (extract) host {pp[0]['pp_stage_s'] / T * 1e3:.2f} ms a "
+        f"frame, device {pp[0]['pp_stage_device_ms']:.3f}; stage 1 (track) host "
+        f"{pp[1]['pp_stage_s'] / T * 1e3:.2f}, device {pp[1]['pp_stage_device_ms']:.3f} "
+        f"(profiled over {DIST_PIPELINE_PROFILE_T} frames); sequential step device "
+        f"{w1['seq_device_ms']:.3f} ms a frame; {smi}")
+    if (not np.array_equal(got.n_inliers, seq.n_inliers.cpu().numpy())
+            or dR > DIST_PIPE_TOL[0] or dt > DIST_PIPE_TOL[1]):
+        raise AssertionError(f"{name}: the pipeline parts from the sequential step")
+    ref = w1["dp"]
+    for r in ranks:
+        d = max(float(np.abs(r["dp"][k] - ref[k].cpu().numpy()).max()) for k in ("R", "t"))
+        counts = all(np.array_equal(r["dp"][k], ref[k].cpu().numpy())
+                     for k in ("n_inliers", "n_matches"))
+        if not counts or d > MULTISEQ_POSE_TOL:
+            raise AssertionError(f"{name}: DP on rank {r['rank']} parts from world 1 by {d}")
+    B, T = DIST_DP["batch"], DIST_DP["frames"]
+    log("dist", f"{name}: DP at B = {B} x {T} frames over {len(ranks)} ranks within "
+        f"{MULTISEQ_POSE_TOL} of world 1, counts equal; aggregate "
+        f"{B * T / max(r['dp_s'] for r in ranks):.2f} frames/s (world 1 "
+        f"{B * T / w1['dp_s']:.2f}); {smi}")
+
+    def summed(key):
+        return {k: sum(r[key][k] for r in ranks if key in r) for k in ranks[0]["tp_launches"]}
+
+    return {f"{name}_tp": summed("tp_launches"), f"{name}_pipeline": summed("pp_launches"),
+            f"{name}_dp": summed("dp_launches")}
+
+
+def phase_dist(device, e, results, smi):
+    """The multi-device modes on the card; see the module docstring."""
+    from orb_slam_tracking_tpu_torch.entry import DEVICE_LOOP_CONFIG as cfg
+    from orb_slam_tracking_tpu_torch.ops import hamming, matcher
+    from orb_slam_tracking_tpu_torch.ops.matcher import match_descriptors
+    from orb_slam_tracking_tpu_torch.optim.ba import bundle_adjust
+    from orb_slam_tracking_tpu_torch.parallel.distributed import (
+        make_global_array, replicate, single_process_group, spawn)
+    from orb_slam_tracking_tpu_torch.parallel.matcher_sharded import match_descriptors_tp
+    from orb_slam_tracking_tpu_torch.parallel.multiseq import _no_stats
+    from orb_slam_tracking_tpu_torch.parallel.pipeline import track_sequential
+    from orb_slam_tracking_tpu_torch.slam.fused_step import TrackingStep
+    from orb_slam_tracking_tpu_torch.utils.synthetic import strong_scaling_ba_problem
+
+    paths, w1 = {}, {}
+    tp = _tp_inputs(device)
+    B, T = DIST_DP["batch"], DIST_DP["frames"]
+    dp_frames = e.frames[:B, :T]
+    dp_args = tuple(x[:B] for x in e.args[:5]) + (e.args[5],)
+    pp_frames = e.loop_entry.frames[:DIST_PIPELINE_T]
+    zn, zd, _ = _no_stats(e.args[0][0])
+    pp_args = (e.args[0][0], e.args[1][0], e.args[2][0], zn, zd, zd, e.args[3][0],
+               e.args[4][0], e.args[5])
+
+    # world 1 on NCCL in this process
+    with single_process_group("nccl", device) as mesh:
+        q = [torch.tensor(a, device=device) for a in tp]
+        shard = (make_global_array(mesh, tp[2]), make_global_array(mesh, tp[3]))
+        calls = []
+        reset_counters()
+        with recorded(matcher, "hamming_gated_min", calls):
+            w1["tp"] = match_descriptors_tp(q[0], q[1], *shard, group=mesh.group)
+        torch.cuda.synchronize()
+        paths["dist_tp"] = read_counters()
+        if paths["dist_tp"]["hamming_gated_min"] != 1 or sum(paths["dist_tp"].values()) != 1:
+            raise AssertionError(f"the matcher launched {paths['dist_tp']}, not B3f once")
+        dense = match_descriptors(*q)
+        with plain_kernels():
+            plain = match_descriptors(*q)
+        w1["tp"] = w1["tp"].cpu().numpy()
+        if not (np.array_equal(w1["tp"], dense.cpu().numpy())
+                and np.array_equal(w1["tp"], plain.cpu().numpy())):
+            raise AssertionError("world 1's matcher differs from match_descriptors or the plain chain")
+        w1["tp_ms"] = time_ms(lambda: match_descriptors_tp(q[0], q[1], *shard, group=mesh.group))
+        w1["dense_ms"] = time_ms(lambda: match_descriptors(*q))
+        log("dist", f"world 1 (nccl): the matcher at [{DIST_TP['queries']}, {DIST_TP['map_rows']}]"
+            f" equals match_descriptors and the plain chain exactly ({int((w1['tp'] >= 0).sum())}"
+            f" matches); launches {paths['dist_tp']}; {w1['tp_ms']:.3f} ms a call against "
+            f"match_descriptors' {w1['dense_ms']:.3f} (median of {RUNS} CUDA-event calls); {smi}")
+        # B3f at the matcher's shape: the kernel, its plain version, the bound
+        args = calls[0]
+        got = torch.stack(hamming.hamming_gated_min(*args))
+        if not torch.equal(got, torch.stack(hamming.hamming_gated_min_reference(*args))):
+            raise AssertionError("B3f at the matcher's shape differs from its plain version")
+        n, p = args[0].shape[0], args[1].shape[0]
+        shifts = torch.arange(32, device=device, dtype=torch.int32)
+        pa, pb = (((d[..., None] >> shifts) & 1).reshape(-1, 256).to(torch.bfloat16)
+                  for d in args[:2])
+        b_ms, b_by = bound_ms(32.0 * (n + p) + 34.0 * n + 17.0 * p, 10.0 * n * p, 512.0 * n * p)
+        k_tp = {"shape": [n, p], "ms": queued_ms(lambda: hamming.hamming_gated_min(*args)),
+                "plain_ms": device_ms(lambda: hamming.hamming_gated_min_reference(*args)),
+                "library_ms": queued_ms(lambda: torch.mm(pa, pb.T)),
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+        log("dist", f"hamming_gated_min at the matcher's open gates [{n}, {p}]: exact against "
+            f"its plain version; device ms {k_tp['ms']:.4f}, plain {k_tp['plain_ms']:.4f}, "
+            f"library (torch.mm of bf16 planes) {k_tp['library_ms']:.4f}; bound {b_ms:.4f} ms "
+            f"({b_by}); {smi}")
+
+        # the sharded BA against bundle_adjust
+        ba = _ba_inputs(1)
+        (R, t, X, cost), w1["ba_ms"] = _dist_ba(mesh, ba)
+        w1["ba"] = (R.cpu().numpy(), t.cpu().numpy(), X.cpu().numpy(), float(cost))
+        kf_R, kf_t, pts0, obs_kf, obs_pt, obs_uv, K = strong_scaling_ba_problem(0)
+        O = len(obs_kf)
+        single_args = [torch.tensor(a, device=device) for a in (kf_R, kf_t, pts0, obs_kf,
+                                                                  obs_pt, obs_uv)]
+        single_args += [torch.ones(O, device=device), torch.ones(O, dtype=torch.bool,
+                                                                 device=device),
+                        torch.tensor(ba[8], device=device),
+                        torch.ones(len(pts0), dtype=torch.bool, device=device),
+                        torch.tensor(K, device=device)]
+        ref = bundle_adjust(*single_args, iterations=DIST_BA["iterations"])
+        times = []
+        for _ in range(DIST_BA["runs"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bundle_adjust(*single_args, iterations=DIST_BA["iterations"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        w1["single_ms"] = statistics.median(times)
+        _ba_within(w1["ba"], (ref.kf_R.cpu().numpy(), ref.kf_t.cpu().numpy(),
+                              ref.pts.cpu().numpy(), float(ref.cost)),
+                   "world 1 (nccl): the sharded BA on the strong-scaling problem against "
+                   "bundle_adjust")
+        anchor = abs(w1["ba"][3] - DIST_BA_JAX_COST) / DIST_BA_JAX_COST
+        log("dist", f"world 1: BA {w1['ba_ms']:.1f} host ms a solve against bundle_adjust's "
+            f"{w1['single_ms']:.1f} (median of {DIST_BA['runs']}); final cost against JAX's on "
+            f"its 8-device virtual CPU mesh (SCALING_r05.json) {DIST_BA_JAX_COST!r}: relative "
+            f"{anchor:.3g}; {smi}")
+        if anchor >= DIST_BA_BOUNDS[0]:
+            raise AssertionError("the strong-scaling BA's final cost parts from JAX's")
+
+        # DP at B = 4 through the group of one against PR 9's [B] runner
+        dp_out, paths["dist_dp"], w1["dp_s"] = _dist_dp(mesh, dp_frames, dp_args)
+        w1["dp"] = dp_out
+        ref = e.run(dp_frames, *dp_args)
+        if not all(torch.equal(dp_out[k], ref[k]) for k in ref):
+            raise AssertionError("DP through a group of one differs from the [B] runner")
+        want = {k: v * T for k, v in PER_FRAME.items()}
+        if paths["dist_dp"] != want:
+            raise AssertionError(f"DP launches {paths['dist_dp']}, expected {want}")
+        log("dist", f"world 1: DP at B = {B} x {T} frames bit for bit PR 9's [B] runner; "
+            f"launches {paths['dist_dp']}; aggregate {B * T / w1['dp_s']:.2f} frames/s; {smi}")
+
+    # the sequential step the pipeline is held to, on this card
+    step = TrackingStep(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker, device=device)
+    track_sequential(step, pp_frames[:2], *pp_args)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w1["seq"] = track_sequential(step, pp_frames, *pp_args)
+    torch.cuda.synchronize()
+    w1["seq_s"] = time.perf_counter() - t0
+    n = DIST_PIPELINE_PROFILE_T
+    w1["seq_device_ms"] = device_ms(lambda: track_sequential(step, pp_frames[:n], *pp_args),
+                                    runs=1) / n
+
+    payload = {"tp": tp, "ba": _ba_inputs(2),
+               "pipeline": {"frames": pp_frames.cpu().numpy(),
+                            "args": [a.cpu().numpy() for a in pp_args]},
+               "dp": {"frames": dp_frames.cpu().numpy(),
+                      "args": [a.cpu().numpy() for a in dp_args]}}
+    # world 2 on this one card: gloo with CUDA tensors (NCCL refuses two
+    # ranks on one GPU)
+    t0 = time.perf_counter()
+    ranks = spawn(_dist_ranks, 2, "gloo", "cuda", (payload,), timeout=600)
+    log("dist", f"world 2 (gloo, both ranks on {ranks[0]['device']}): spawned and ran in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths.update(_check_world("dist_gloo2", ranks, w1, smi))
+    if torch.cuda.device_count() >= 2:
+        ranks = spawn(_dist_ranks, 2, "nccl", "cuda", (payload,), timeout=600)
+        log("dist", f"world 2 (nccl, ranks on {[r['device'] for r in ranks]})")
+        paths.update(_check_world("dist_nccl2", ranks, w1, smi))
+    else:
+        log("dist", "nccl world 2: not run, 1 card")
+    want = {"dist_gloo2_tp": {"hamming_gated_min": 2},
+            "dist_gloo2_pipeline": {"fast_score": DIST_PIPELINE_T, "orient_describe":
+                                    DIST_PIPELINE_T, "hamming_gated_min": 2 * DIST_PIPELINE_T},
+            "dist_gloo2_dp": {k: 2 * v * T for k, v in PER_FRAME.items() if v}}
+    for path, counts in want.items():
+        got = {k: v for k, v in paths[path].items() if v}
+        if got != counts:
+            raise AssertionError(f"{path}: launches {got}, expected {counts}")
+    log("dist", f"launches by path (summed over the ranks): {paths}")
+    for k in results:
+        if k["name"] == "hamming_gated_min":
+            k["dist_tp"] = k_tp
     return paths
 
 
@@ -2111,7 +2535,9 @@ def main() -> int:
     paths["tracker"], paths["tracker_rescue"] = timed("tracker", phase_tracker, device)
     paths["loop"], paths["loop_ratio"] = timed("loop", phase_loop, device)
     paths["device_loop"] = timed("device_loop", phase_device_loop, device, loop_entry)
-    paths.update(timed("multiseq", phase_multiseq, device, loop_entry, results))
+    ms_paths, ms_entry = timed("multiseq", phase_multiseq, device, loop_entry, results)
+    paths.update(ms_paths)
+    paths.update(timed("dist", phase_dist, device, ms_entry, results, smi))
     paths["per_level"] = timed("per_level", phase_per_level, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as tmp:
         paths.update(timed("tum", phase_tum, device, tmp))
@@ -2121,7 +2547,8 @@ def main() -> int:
         raise AssertionError(f"jax or the JAX package was imported: {foreign[:5]}")
     need = {f"orb_slam_tracking_tpu_torch.{m}" for m in (
         "io", "io.images", "io.tum", "io.native_loader", "ops.harris", "tools.eval_tum",
-        "tools.make_synthetic_tum", "utils.metrics", "utils.synthetic")}
+        "tools.make_synthetic_tum", "utils.metrics", "utils.synthetic", "parallel.distributed",
+        "parallel.matcher_sharded", "parallel.ba_sharded", "parallel.pipeline")}
     if not need <= set(sys.modules):
         raise AssertionError(f"the port's modules were not all driven: {need - set(sys.modules)}")
     for k in results:
@@ -2139,6 +2566,10 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on each of {on_bow}")
         if k["name"] in PER_LEVEL_EXTRACTION and k["launches_by_path"]["per_level"] == 0:
             raise AssertionError(f"{k['name']} was not launched on the per-level path")
+        on_dist = [p for p in paths if p.startswith("dist_")
+                   and (k["name"] in PER_DIST_PATH.get(p.split("_")[-1], ()))]
+        if any(k["launches_by_path"][p] == 0 for p in on_dist):
+            raise AssertionError(f"{k['name']} was not launched on each of {on_dist}")
         on_tum = PER_FRAME[k["name"]] + PER_INSERT.get(k["name"], 0) > 0
         if on_tum and any(k["launches_by_path"][p] == 0
                           for p in ("tum", "tum_harris", "tum_device_loop")):

@@ -10,6 +10,11 @@ The hot kernels (FAST score, BRIEF sampling + packing, Hamming matrix) are
 CUDA C++ for Hopper under ``csrc/``, built with ``nvcc`` at first use from
 a CUDA-tensor call (``kernels``). Each wrapper runs its plain PyTorch
 version only for tensors that lie on the CPU.
+
+The JAX package's multi-device modes (its ``Mesh`` / ``shard_map``
+programs) run over ``torch.distributed`` process groups in
+``parallel/``: the tensor-parallel matcher, the point-sharded BA, the
+two-stage tracking pipeline and data parallelism across ranks.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Where the port's entry points put their tensors.
 
 Every entry point (``entry``, ``init_entry``, ``TrackingStep``,
-``TwoViewInitializer``, ``ExtractorConstants``, ``gauss_taps``) runs on the
-card unless the caller asks for the CPU with ``device="cpu"``.
+``TwoViewInitializer``, ``ExtractorConstants``, ``gauss_taps``, the
+multi-sequence runners, ``make_pipelined_tracker``, ``dryrun_multichip``)
+runs on the card unless the caller asks for the CPU with ``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -31,10 +31,17 @@ given to each of B sequences. Where the JAX script tiles one sequence B
 times, the port's sequences are distinct: sequence b starts
 ``MULTISEQ_STRIDE * b`` frames further along the strafe, from the pose a
 one-sequence run reaches there.
+
+``dryrun_multichip`` is the counterpart of
+``__graft_entry__.dryrun_multichip``: ``world_size`` ranks over
+``torch.distributed`` run one step of every multi-device mode at tiny
+shapes: DP tracking across the ranks, the tensor-parallel matcher, the
+two-stage pipeline (on ranks 0 and 1) and the point-sharded BA.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
@@ -44,7 +51,7 @@ from .config import (CameraConfig, InitConfig, MatcherConfig, OrbConfig,
                      SystemConfig, TrackerConfig)
 from .convert import map_from_numpy
 from .device import DEFAULT_DEVICE, resolve_device
-from .parallel.multiseq import make_multiseq_sequence_runner
+from .parallel.multiseq import make_multiseq_sequence_runner, make_multiseq_step
 from .slam.device_mapping import DeviceSequenceLoop, make_device_sequence_loop
 from .slam.fused_step import TrackingStep
 from .slam.tracker import Tracker, TrackState
@@ -52,6 +59,7 @@ from .slam.two_view_init import TwoViewInitializer
 from .utils.synthetic import CornerField, make_trajectory, render_frame
 
 __all__ = ["entry", "init_entry", "tracker_entry", "device_loop_entry", "multiseq_entry",
+           "dryrun_multichip",
            "InitEntry", "TrackerEntry", "DeviceLoopEntry", "MultiseqEntry", "ENTRY_CAMERA",
            "INIT_PAIR", "TRACKER_CONFIG", "DEVICE_LOOP_CONFIG", "MULTISEQ_STRIDE"]
 
@@ -246,3 +254,91 @@ def multiseq_entry(device: torch.device | str = DEFAULT_DEVICE, batch: int = 4,
                           for b in range(batch)])
     return MultiseqEntry(run, (*maps, torch.stack(R0), torch.stack(t0), K), frames,
                          [e.boot_end + MULTISEQ_STRIDE * b for b in range(batch)], e)
+
+
+def _dryrun_rank(mesh) -> dict:
+    """One rank of ``dryrun_multichip`` (``__graft_entry__.py:63-236``'s
+    shapes: 96x128 frames, 32 features, an ``8 x world``-point map)."""
+    import torch.distributed as dist
+
+    from .parallel.ba_sharded import bucket_observations, bundle_adjust_sharded
+    from .parallel.distributed import make_global_array, replicate
+    from .parallel.matcher_sharded import match_descriptors_tp
+    from .parallel.pipeline import make_pipelined_tracker
+
+    dev, n = mesh.device, mesh.size
+    rng = np.random.default_rng(0)
+    H, W, B, Pcap = 96, 128, n, 8 * n
+    ocfg = OrbConfig(n_features=32, n_levels=3, select_cell_size=8, max_keypoints=64)
+    mcfg = MatcherConfig()
+    cam = CameraConfig(fx=100.0, fy=100.0, cx=W / 2, cy=H / 2, width=W, height=H)
+    K = torch.tensor([[100.0, 0, W / 2], [0, 100.0, H / 2], [0, 0, 1]], device=dev)
+    images = torch.tensor(rng.uniform(0, 255, (B, H, W)).astype(np.float32), device=dev)
+    map_pts = torch.tensor(np.stack([rng.uniform(-1, 1, (B, Pcap)), rng.uniform(-1, 1, (B, Pcap)),
+                                     rng.uniform(2, 5, (B, Pcap))], -1).astype(np.float32),
+                           device=dev)
+    map_desc = torch.tensor(rng.integers(0, 2**32, (B, Pcap, 8), dtype=np.uint32).view(np.int32),
+                            device=dev)
+    map_valid = torch.ones((B, Pcap), dtype=torch.bool, device=dev)
+    R = torch.eye(3, device=dev).expand(B, 3, 3).contiguous()
+    t = torch.zeros((B, 3), device=dev)
+    out = {}
+
+    # DP tracking: B sequences, B / world on each rank
+    step = make_multiseq_step(ocfg, mcfg, W, H, device=dev, group=mesh.group)
+    out["dp_n_kps"] = step(images, map_pts, map_desc, map_valid, R, t, K).n_kps
+
+    # the tensor-parallel matcher: sequence 0's map table sharded
+    Nq = 16
+    desc_q = torch.tensor(rng.integers(0, 2**32, (Nq, 8), dtype=np.uint32).view(np.int32),
+                          device=dev)
+    md0 = map_desc[0].cpu().numpy()
+    out["tp_matches"] = match_descriptors_tp(
+        desc_q, torch.ones(Nq, dtype=torch.bool, device=dev), make_global_array(mesh, md0),
+        make_global_array(mesh, np.ones(Pcap, bool)), group=mesh.group)
+
+    # the two-stage pipeline on ranks 0 and 1 (every rank forms the group)
+    T = 3
+    frames = torch.tensor(rng.uniform(0, 255, (T, H, W)).astype(np.float32), device=dev)
+    if n >= 2:
+        pp_group = dist.new_group([0, 1])
+        if mesh.rank < 2:
+            zp = torch.zeros((Pcap, 3), device=dev)
+            zd = torch.zeros(Pcap, device=dev)
+            run = make_pipelined_tracker(pp_group, cam, ocfg, mcfg, TrackerConfig(), device=dev)
+            out["pp_R"] = run(frames, map_pts[0], map_desc[0], map_valid[0], zp, zd, zd,
+                              torch.eye(3, device=dev), torch.zeros(3, device=dev), K).R
+
+    # the point-sharded BA: 4 keyframes, every point seen from each
+    nK, nP = 4, Pcap
+    kf_R = np.broadcast_to(np.eye(3, dtype=np.float32), (nK, 3, 3))
+    kf_t = np.stack([np.array([-0.1 * k, 0, 0], np.float32) for k in range(nK)])
+    pts = map_pts[0].cpu().numpy()
+    obs_kf = np.repeat(np.arange(nK), nP).astype(np.int32)
+    obs_pt = np.tile(np.arange(nP), nK).astype(np.int32)
+    pc = np.einsum("kij,pj->kpi", kf_R, pts) + kf_t[:, None, :]
+    obs_uv = ((pc[..., :2] / pc[..., 2:]) * [100.0, 100.0] + [W / 2, H / 2]).reshape(-1, 2)
+    O = nK * nP
+    bk, bp, buv, bw, bv = bucket_observations(
+        obs_kf, obs_pt, obs_uv.astype(np.float32), np.ones(O, np.float32), np.ones(O, bool),
+        nP, n, O // n + 8)
+    fixed = np.zeros(nK, bool)
+    fixed[0] = True
+    G = functools.partial(make_global_array, mesh)
+    out["ba_cost"] = bundle_adjust_sharded(
+        replicate(mesh, kf_R), replicate(mesh, kf_t), G(pts), G(bk), G(bp), G(buv), G(bw), G(bv),
+        replicate(mesh, fixed), G(np.ones(nP, bool)), K, iterations=3, group=mesh.group)[3]
+    return out
+
+
+def dryrun_multichip(world_size: int, backend: str = "nccl",
+                     device: torch.device | str = DEFAULT_DEVICE) -> List[dict]:
+    """``world_size`` spawned ranks in a ``backend`` group, rank r on
+    ``device`` (``"cuda"``: the card ``r % device_count``), each running
+    one step of every multi-device mode (``_dryrun_rank``). Returns each
+    rank's outputs (numpy): ``dp_n_kps [world]``, ``tp_matches [16]``,
+    ``pp_R [3, 3, 3]`` (ranks 0 and 1, when ``world_size >= 2``) and
+    ``ba_cost``."""
+    from .parallel.distributed import spawn
+
+    return spawn(_dryrun_rank, world_size, backend, device)

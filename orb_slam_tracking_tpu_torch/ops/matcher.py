@@ -25,7 +25,8 @@ resolution and the rotation histogram of the initialization matcher.
 
 ``match_descriptors`` (the ``SearchByBoW`` role without a vocabulary):
 window-free best + ratio + mutual, through ``hamming_gated_min`` with
-every gate open.
+every gate open (``open_gated_min``, which the tensor-parallel matcher,
+``parallel/matcher_sharded.py``, takes per map shard).
 
 ``match_descriptors_bow`` (``SearchByBoW`` itself): the same, but a pair
 is compared only under the same vocabulary direct-index node. Its pairs
@@ -43,7 +44,8 @@ from ..config import MatcherConfig
 from .hamming import BIG, hamming_gated_min, hamming_matrix
 
 __all__ = ["MatchResult", "search_for_initialization", "search_for_triangulation",
-           "match_descriptors", "match_descriptors_bow", "compact_matches"]
+           "match_descriptors", "match_descriptors_bow", "open_gated_min",
+           "compact_matches"]
 
 _SENTINEL = torch.iinfo(torch.int32).max
 _INT_MIN = torch.iinfo(torch.int32).min
@@ -218,9 +220,19 @@ def match_descriptors(desc1: torch.Tensor, valid1: torch.Tensor,
     most ``th``, below ``ratio`` x the second least, and the closest
     claimant of that row. -> matches12 [N1] int32 (-1 = none).
 
-    The row minima are ``hamming_gated_min``'s with every gate open: all
-    coordinates and radii 0 (so every window test holds) and the octave
-    range the whole int32 line."""
+    The row minima are ``open_gated_min``'s."""
+    best, best_j, second = open_gated_min(desc1, valid1, desc2, valid2)
+    accept = (best <= th) & (best.float() < ratio * second.float())
+    keep = _mutual(accept, best, best_j, desc2.shape[0])
+    return torch.where(keep, best_j, -1)
+
+
+def open_gated_min(desc1: torch.Tensor, valid1: torch.Tensor, desc2: torch.Tensor,
+                   valid2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(best, best_j, second) [N1] int32 of each row of ``desc1 [N1, 8]``
+    over the valid rows of ``desc2 [N2, 8]``: ``hamming_gated_min`` with
+    every gate open (all coordinates and radii 0, so every window test
+    holds, and the octave range the whole int32 line)."""
     n1, n2 = desc1.shape[0], desc2.shape[0]
     n, dev = max(n1, n2), desc1.device
     xy = torch.zeros((n, 2), dtype=torch.float32, device=dev)
@@ -228,12 +240,8 @@ def match_descriptors(desc1: torch.Tensor, valid1: torch.Tensor,
     octave = torch.zeros(n, dtype=torch.int32, device=dev)
     lo = torch.full((n1,), _INT_MIN, dtype=torch.int32, device=dev)
     hi = torch.full((n1,), _SENTINEL, dtype=torch.int32, device=dev)
-    best, best_j, second = hamming_gated_min(
-        desc1, desc2, xy[:n1], r[:n1], valid1, lo, hi, valid1,
-        xy[:n2], r[:n2], octave[:n2], valid2)
-    accept = (best <= th) & (best.float() < ratio * second.float())
-    keep = _mutual(accept, best, best_j, n2)
-    return torch.where(keep, best_j, -1)
+    return hamming_gated_min(desc1, desc2, xy[:n1], r[:n1], valid1, lo, hi, valid1,
+                             xy[:n2], r[:n2], octave[:n2], valid2)
 
 
 def match_descriptors_bow(desc1: torch.Tensor, valid1: torch.Tensor, node1: torch.Tensor,

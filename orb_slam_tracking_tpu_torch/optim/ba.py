@@ -38,7 +38,8 @@ from ..geometry import se3
 from .lm import huber_weight, inv3x3, nielsen_update
 from .segment import segment_sum, segments
 
-__all__ = ["BAResult", "bundle_adjust", "lm_solver"]
+__all__ = ["BAResult", "bundle_adjust", "lm_solver", "normal_blocks", "robust_rho",
+           "obs_residuals"]
 
 _CHI2_MONO = 5.991
 
@@ -52,7 +53,7 @@ class BAResult(NamedTuple):
     obs_inlier: torch.Tensor  # [O] bool final chi2 classification
 
 
-def _obs_residuals(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, fx, fy, cx, cy):
+def obs_residuals(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, fx, fy, cx, cy):
     """Residuals [O, 2], camera Jacobians [O, 2, 6] (left-multiplied
     increment), point Jacobians [O, 2, 3], camera-frame depth [O]."""
     Ro = kf_R[obs_kf]
@@ -70,6 +71,30 @@ def _obs_residuals(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, fx, fy, cx, cy):
     eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(pc.shape[:-1] + (3, 3))
     J_pc_cam = torch.cat([-se3.hat(pc), eye], dim=-1)           # [O, 3, 6]
     return r, J_proj @ J_pc_cam, J_proj @ Ro, z
+
+
+def robust_rho(r: torch.Tensor, w_info: torch.Tensor) -> torch.Tensor:
+    """Per observation the Huber-robust chi2 of residuals ``r [O, 2]``
+    under the information weights ``w_info [O]``."""
+    chi2 = (r * r).sum(dim=-1) * w_info
+    return torch.where(chi2 <= _CHI2_MONO, chi2, 2.0 * torch.sqrt(_CHI2_MONO * chi2) - _CHI2_MONO)
+
+
+def normal_blocks(r, Jc, Jp, w_info):
+    """Per observation the Huber-weighted blocks of the normal equations:
+    ``U [O, 6, 6]``, ``V [O, 3, 3]``, ``g_c [O, 6]``, ``g_p [O, 3]`` and
+    the coupling ``W [O, 6, 3]``, as broadcast multiply-adds over the two
+    residual rows (JAX's form)."""
+    chi2 = (r * r).sum(dim=-1) * w_info
+    w = huber_weight(chi2, _CHI2_MONO) * w_info
+    Jcw = Jc * w[:, None, None]
+    Jpw = Jp * w[:, None, None]
+    bU = Jcw[:, 0, :, None] * Jc[:, 0, None, :] + Jcw[:, 1, :, None] * Jc[:, 1, None, :]
+    bV = Jpw[:, 0, :, None] * Jp[:, 0, None, :] + Jpw[:, 1, :, None] * Jp[:, 1, None, :]
+    bgc = Jcw[:, 0] * r[:, 0, None] + Jcw[:, 1] * r[:, 1, None]
+    bgp = Jpw[:, 0] * r[:, 0, None] + Jpw[:, 1] * r[:, 1, None]
+    bW = Jcw[:, 0, :, None] * Jp[:, 0, None, :] + Jcw[:, 1, :, None] * Jp[:, 1, None, :]
+    return bU, bV, bgc, bgp, bW
 
 
 def bundle_adjust(
@@ -131,23 +156,12 @@ def lm_solver(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, obs_inv_sigma2, obs_valid
     rank_safe = free_rank.clamp(0, nF - 1)
 
     def robust_cost(R, t, X):
-        r, _, _, _ = _obs_residuals(R, t, X, okf, opt, obs_uv, fx, fy, cx, cy)
-        chi2 = (r * r).sum(dim=-1) * w_info
-        rho = torch.where(chi2 <= _CHI2_MONO, chi2,
-                          2.0 * torch.sqrt(_CHI2_MONO * chi2) - _CHI2_MONO)
-        return rho.sum()
+        r, _, _, _ = obs_residuals(R, t, X, okf, opt, obs_uv, fx, fy, cx, cy)
+        return robust_rho(r, w_info).sum()
 
     def lm_iter(R, t, X, lam, nu, cost, done, rejects):
-        r, Jc, Jp, _ = _obs_residuals(R, t, X, okf, opt, obs_uv, fx, fy, cx, cy)
-        chi2 = (r * r).sum(dim=-1) * w_info
-        w = huber_weight(chi2, _CHI2_MONO) * w_info
-        Jcw = Jc * w[:, None, None]
-        Jpw = Jp * w[:, None, None]
-        bU = Jcw[:, 0, :, None] * Jc[:, 0, None, :] + Jcw[:, 1, :, None] * Jc[:, 1, None, :]
-        bV = Jpw[:, 0, :, None] * Jp[:, 0, None, :] + Jpw[:, 1, :, None] * Jp[:, 1, None, :]
-        bgc = Jcw[:, 0] * r[:, 0, None] + Jcw[:, 1] * r[:, 1, None]
-        bgp = Jpw[:, 0] * r[:, 0, None] + Jpw[:, 1] * r[:, 1, None]
-        bW = Jcw[:, 0, :, None] * Jp[:, 0, None, :] + Jcw[:, 1, :, None] * Jp[:, 1, None, :]
+        r, Jc, Jp, _ = obs_residuals(R, t, X, okf, opt, obs_uv, fx, fy, cx, cy)
+        bU, bV, bgc, bgp, bW = normal_blocks(r, Jc, Jp, w_info)
         U = segment_sum(bU, seg_k)
         V = segment_sum(bV, seg_p)
         g_c = segment_sum(bgc, seg_k)
@@ -215,7 +229,7 @@ def lm_solver(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, obs_inv_sigma2, obs_valid
 
     def finish(carry):
         R, t, X, _, _, cost, _, _ = carry
-        r, _, _, z = _obs_residuals(R, t, X, okf, opt, obs_uv, fx, fy, cx, cy)
+        r, _, _, z = obs_residuals(R, t, X, okf, opt, obs_uv, fx, fy, cx, cy)
         chi2 = (r * r).sum(dim=-1) * w_info
         obs_inlier = obs_valid & (chi2 <= _CHI2_MONO) & (z > 0)
         return BAResult(kf_R=R, kf_t=t, pts=X, cost0=cost0, cost=cost, obs_inlier=obs_inlier)

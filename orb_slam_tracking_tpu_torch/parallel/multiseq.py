@@ -1,16 +1,23 @@
-"""Multi-sequence data parallelism on one card (counterpart of
-``parallel/multiseq.py``).
+"""Multi-sequence data parallelism (counterpart of ``parallel/multiseq.py``).
 
 Many sequences tracked at once: the per-frame work (extraction,
 projection matching, the pose LM) is the same for every sequence, so B
 sequences ride a leading batch axis of one program. The JAX module
 ``vmap``s the single-sequence step and shards the batch over a mesh's
-``dp`` axis; here there is one card and no mesh, so the runners take a
-``device`` (the card unless ``device="cpu"``) and any B. The batch axis is
-written out: every per-sequence tensor carries a leading [B] (``K`` is
-shared), and each frame of B sequences launches the extraction's FAST and
+``dp`` axis; here the runners take a ``device`` (the card unless
+``device="cpu"``) and any B. The batch axis is written out: every
+per-sequence tensor carries a leading [B] (``K`` is shared), and each
+frame of B sequences launches the extraction's FAST and
 orient-and-describe kernels once and the fused Hamming kernel once per
 match, whatever B is.
+
+The step and the frozen-map sequence runner also spread B over the ranks
+of a process group (``group``, the JAX mesh's ``dp`` axis across
+devices): every rank is given the whole batch, runs its contiguous B/D
+sequences through the [B] path on its own device, and the outputs are
+all-gathered in sequence order, so every rank returns the whole batch's.
+``group=None`` keeps the batch on this process's device. The init and
+mapping runners stay on one device.
 
 Four runners, as the JAX module's:
 
@@ -36,9 +43,11 @@ every JAX runner does.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed
 
 from ..config import CameraConfig, InitConfig, MatcherConfig, OrbConfig, TrackerConfig
 from ..device import DEFAULT_DEVICE, full_f32, resolve_device
@@ -51,6 +60,7 @@ from ..optim.pose_opt import optimize_pose
 from ..slam.device_mapping import DeviceSequenceLoop, _index_batch, _matvec
 from ..slam.fused_step import TrackingStep
 from ..slam.map import SlamMap
+from .distributed import all_gather, group_rank_size
 
 __all__ = ["MultiseqResult", "make_multiseq_step", "make_multiseq_sequence_runner",
            "make_multiseq_init_runner", "make_multiseq_mapping_runner",
@@ -74,21 +84,49 @@ def _no_stats(map_pts: torch.Tensor):
     return zn, zd, zd
 
 
+def _dp(group, fn):
+    """``fn`` over this rank's contiguous rows of the leading [B] of every
+    argument but the last (``K``), its outputs all-gathered in sequence
+    order; ``fn`` itself when ``group`` is None."""
+    if group is None:
+        return fn
+
+    def sharded(*args):
+        rank, size = group_rank_size(group, args[0].device)
+        B = args[0].shape[0]
+        if B % size:
+            raise ValueError(f"{B} sequences do not divide over {size} ranks")
+        per = B // size
+        out = fn(*(a[rank * per:(rank + 1) * per] for a in args[:-1]), args[-1])
+
+        def gathered(x):
+            return all_gather(x, group, size).reshape((B,) + x.shape[1:])
+
+        if isinstance(out, dict):
+            return {k: gathered(v) for k, v in out.items()}
+        return type(out)(*(gathered(x) for x in out))
+
+    return sharded
+
+
 def make_multiseq_step(orb_cfg: OrbConfig, matcher_cfg: MatcherConfig, width: int,
                        height: int, radius: float = 15.0,
-                       device: torch.device | str = DEFAULT_DEVICE):
+                       device: torch.device | str = DEFAULT_DEVICE,
+                       group: Optional[torch.distributed.ProcessGroup] = None):
     """The one-frame DP step (``multiseq.py:51-103``):
 
     ``step(images [B,H,W], map_pts [B,P,3], map_desc [B,P,8] int32,
     map_valid [B,P], R [B,3,3], t [B,3], K [3,3]) -> MultiseqResult``.
 
     Extraction, one projection match at ``radius`` on the raw keypoint
-    pixels and the pose LM (default rounds), batched."""
+    pixels and the pose LM (default rounds), batched; with a ``group``,
+    each rank's B/D sequences (see the module docstring)."""
     device = resolve_device(device)
     full_f32(device)
     consts = ExtractorConstants(height, width, orb_cfg, device)
     scale = orb_cfg.scale_factor
 
+    @functools.partial(_dp, group)
     def step(images, map_pts, map_desc, map_valid, R, t, K) -> MultiseqResult:
         kps = orb_extract(images, orb_cfg, consts)
         zn, zd, _ = _no_stats(map_pts)
@@ -108,7 +146,8 @@ def make_multiseq_step(orb_cfg: OrbConfig, matcher_cfg: MatcherConfig, width: in
 
 def make_multiseq_sequence_runner(cam_cfg: CameraConfig, orb_cfg: OrbConfig,
                                   matcher_cfg: MatcherConfig, tracker_cfg: TrackerConfig,
-                                  device: torch.device | str = DEFAULT_DEVICE):
+                                  device: torch.device | str = DEFAULT_DEVICE,
+                                  group: Optional[torch.distributed.ProcessGroup] = None):
     """Whole sequences with frozen maps (``multiseq.py:106-173``):
 
     ``run(images [B,T,H,W], map_pts [B,P,3], map_desc [B,P,8] int32,
@@ -120,10 +159,12 @@ def make_multiseq_sequence_runner(cam_cfg: CameraConfig, orb_cfg: OrbConfig,
     window centred on the constant-velocity prediction from the second
     frame on (the JAX carry's ``have_vel``, known on the host here). Nothing
     in a run reads the device from the host; ``run.step`` is the batched
-    ``TrackingStep``."""
+    ``TrackingStep``. With a ``group``, each rank runs its B/D sequences
+    (see the module docstring)."""
     step = TrackingStep(cam_cfg, orb_cfg, matcher_cfg, tracker_cfg, batched_solve=True,
                         device=device)
 
+    @functools.partial(_dp, group)
     def run(images, map_pts, map_desc, map_valid, R0, t0, K) -> Dict[str, torch.Tensor]:
         zn, zd, _ = _no_stats(map_pts)
         R, t = R0, t0

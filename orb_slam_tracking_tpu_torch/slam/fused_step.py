@@ -83,16 +83,22 @@ class TrackingStep(nn.Module):
     def forward(self, image, map_pts, map_desc, map_valid, map_normal,
                 map_dmin, map_dmax, R_pred, t_pred, R0, t0, K
                 ) -> FusedStepResult:
-        kps = orb_extract(image, self.orb_cfg, self.consts)
-        xy_un = camera.undistort_pixels(self.cam_cfg, kps.xy)
+        kps, xy_un = self.extract(image)
         return self.track(kps, xy_un, map_pts, map_desc, map_valid, map_normal, map_dmin,
                           map_dmax, R_pred, t_pred, R0, t0, K)
+
+    def extract(self, image):
+        """The step's first half: (keypoints, their undistorted pixels) of
+        ``image`` (the pipeline's stage 0, ``parallel/pipeline.py``)."""
+        kps = orb_extract(image, self.orb_cfg, self.consts)
+        return kps, camera.undistort_pixels(self.cam_cfg, kps.xy)
 
     def track(self, kps: Keypoints, xy_un, map_pts, map_desc, map_valid, map_normal,
               map_dmin, map_dmax, R_pred, t_pred, R0, t0, K) -> FusedStepResult:
         """The step after the extraction: both matches and pose LMs on given
         keypoints and their undistorted pixels (the multi-sequence init
-        runner tracks its WORKING sequences' keypoints so)."""
+        runner tracks its WORKING sequences' keypoints so, and the
+        pipeline's stage 1 the keypoints stage 0 sends it)."""
         cam, ocfg, tcfg = self.cam_cfg, self.orb_cfg, self.tracker_cfg
         scale = ocfg.scale_factor
 

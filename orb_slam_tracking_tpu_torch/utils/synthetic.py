@@ -2,8 +2,9 @@
 
 Counterpart of ``orb_slam_tracking_tpu/utils/synthetic.py``: the corner
 field in each appearance style (``pts=`` places its points: a ring round
-the circuit, a wall), the renderer, every trajectory mode and the
-bundle-adjustment problem. The random draws, their order and the
+the circuit, a wall), the renderer, every trajectory mode, the
+bundle-adjustment problem and the sharded BA's strong-scaling problem
+(``scripts/scaling_efficiency.py``'s). The random draws, their order and the
 arithmetic are the JAX package's, so the same seed renders the same
 frames; ``tests/test_torch_extract.py``, ``tests/test_torch_io.py`` and
 ``tests/test_torch_map_ba.py`` hold them equal.
@@ -18,7 +19,7 @@ import numpy as np
 from ..config import CameraConfig
 
 __all__ = ["CornerField", "render_frame", "make_trajectory", "plane_points",
-           "ring_points", "synthetic_ba_problem"]
+           "ring_points", "synthetic_ba_problem", "strong_scaling_ba_problem"]
 
 
 class CornerField:
@@ -309,3 +310,38 @@ def synthetic_ba_problem(seed: int, nK: int = 8, nP: int = 512,
     kf_R0 = dR @ kf_R
     kf_t0 = np.einsum("kij,kj->ki", dR, kf_t) + dt
     return pts0, kf_R0, kf_t0, obs_kf, obs_pt, obs_uv, K
+
+
+def strong_scaling_ba_problem(seed: int = 0, nK: int = 20, nP: int = 8192,
+                              obs_per_pt: int = 5):
+    """The sharded BA's strong-scaling problem of the JAX package's
+    ``scripts/scaling_efficiency.py`` (its ``_ba_problem``, the same draws
+    in the same order): ``nK`` keyframes on a yawing strafe, ``nP``
+    points each seen by ``obs_per_pt`` distinct keyframes, 0.5 px noise,
+    points perturbed by 2 %, the poses exact.
+
+    Returns (kf_R, kf_t, pts0, obs_kf, obs_pt, obs_uv, K) as numpy, the
+    observations point-major (point p's ``obs_per_pt`` rows together)."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-4, 4, nP), rng.uniform(-3, 3, nP),
+                    rng.uniform(4, 12, nP)], -1).astype(np.float32)
+    kf_R, kf_t = [], []
+    for k in range(nK):
+        yaw = np.radians(2.0 * k)
+        Rwc = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                        [-np.sin(yaw), 0, np.cos(yaw)]], np.float32)
+        c = np.array([-0.25 * k, 0.02 * k, 0.04 * k], np.float32)
+        R = Rwc.T
+        kf_R.append(R)
+        kf_t.append(-R @ c)
+    kf_R = np.stack(kf_R)
+    kf_t = np.stack(kf_t)
+    obs_kf = np.concatenate(
+        [rng.choice(nK, obs_per_pt, replace=False) for _ in range(nP)]).astype(np.int32)
+    obs_pt = np.repeat(np.arange(nP), obs_per_pt).astype(np.int32)
+    pc = np.einsum("oij,oj->oi", kf_R[obs_kf], pts[obs_pt]) + kf_t[obs_kf]
+    uv = pc[:, :2] / pc[:, 2:] * [450.0, 450.0] + [320.0, 240.0]
+    obs_uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    pts0 = (pts * (1 + rng.normal(0, 0.02, (nP, 1)))).astype(np.float32)
+    K = np.array([[450.0, 0, 320], [0, 450, 240], [0, 0, 1]], np.float32)
+    return kf_R, kf_t, pts0, obs_kf, obs_pt, obs_uv, K
