@@ -121,12 +121,21 @@ sm_90a) and ``nvcc``. Phases, each raising on failure:
    ``torch.mm`` of bf16 planes and its bound; the point-sharded BA on
    ``scripts/scaling_efficiency.py``'s strong-scaling problem within the
    tests' bounds of ``bundle_adjust`` and of JAX's final cost; DP at B = 4
-   x 12 frames through the group of one, bit for bit the [B] runner); then
+   x 12 frames through the group of one, bit for bit the [B] runner; the
+   init runner at B = 2 x 8 frames and the mapping runner at B = 2 x 20
+   frames of phase 11 through the group of one, bit for bit phase 11's
+   one-process [B] runs, with their launches); then
    two spawned ranks on the one card over gloo with CUDA tensors (the
    matcher equal to world 1's, the BA within bounds of world 1's, the
    two-stage pipeline over 48 frames of the frozen map against the
    sequential step on the card, n_inliers equal and poses within 1e-5 /
-   1e-4, DP across the 2 ranks within 1e-4 of world 1); NCCL world 2, one
+   1e-4, DP across the 2 ranks within 1e-4 of world 1; the init and
+   mapping runners with one sequence a rank: each rank's rows bit for bit
+   the one-process runner on those rows, the batch with the [B] run's
+   events, its init rotations at the init frames within 1e-4 and its
+   poses after tracking within 5e-4 (R) and 1e-3 (t), its mapping poses
+   within 1e-3, the launches summed over the ranks those of the row runs,
+   B1 and B4f once a frame a rank); NCCL world 2, one
    rank a card, where the machine has two cards, or the line
    ``[dist] nccl world 2: not run, 1 card``; ms a call or a solve,
    frames/s and each stage's host and device ms, with the card's name and
@@ -136,7 +145,8 @@ The line before the last is ``nvidia-smi``'s name and power limit, the one
 before it a JSON object of per-kernel results (launches counted on each
 path: tracking, init, tracker, tracker_rescue, loop_ratio, loop,
 device_loop, multiseq, multiseq_init, multiseq_mapping, dist_tp, dist_dp,
-dist_gloo2_tp, dist_gloo2_pipeline, dist_gloo2_dp (summed over the ranks;
+dist_w1_init, dist_w1_mapping, dist_gloo2_tp, dist_gloo2_pipeline,
+dist_gloo2_dp, dist_gloo2_init, dist_gloo2_mapping (summed over the ranks;
 dist_nccl2_* with two cards), per_level, tum, tum_harris, tum_device_loop;
 the batched kernels' numbers at B = 1, 4, 8 under ``batched``, B3f's at
 the matcher's shape under ``dist_tp``); the
@@ -148,6 +158,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import json
 import statistics
 import subprocess
@@ -717,6 +728,9 @@ PER_BOW_PATH = {"hamming_matrix": ("tracker_rescue", "loop_ratio", "loop"),
 # the loop's depth, cut from (48, 192) to make room for [multiseq]
 # (tools/seq_fps.py keeps 48 and 192)
 LOOP_T = (32, 96)
+# the tools that time BASELINE's BA and scaling metrics, and the BoW studies
+MEASUREMENT_TOOLS = ("ba_bench", "scaling_efficiency", "bow_match_experiment",
+                     "vocab_recall_study")
 PER_RECOVERY = {"hamming_gated_min": 2}
 PER_LOOP_INSERT = {"hamming_matrix": 4}
 FUSE_MATRIX = (2048, 8192)
@@ -737,7 +751,10 @@ TUM_ATE_M = 0.05
 # the kernels each launches
 PER_DIST_PATH = {"tp": ("hamming_gated_min",),
                  "pipeline": ("fast_score", "orient_describe", "hamming_gated_min"),
-                 "dp": ("fast_score", "orient_describe", "hamming_gated_min")}
+                 "dp": ("fast_score", "orient_describe", "hamming_gated_min"),
+                 "init": ("fast_score", "orient_describe", "hamming_gated_min"),
+                 "mapping": ("fast_score", "orient_describe", "hamming_gated_min",
+                             "hamming_matrix")}
 
 
 def reset_counters():
@@ -2034,9 +2051,9 @@ def phase_multiseq(device, loop_entry, results):
         np.stack([render_frame(CornerField(np.random.default_rng(b), n=ini["field_points"]),
                                cfg.camera, *traj[f]) for f in range(ini["frames"])])
         for b in range(ini["batch"])]), device=device)
-    init = make_multiseq_init_runner(
-        cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
-        dataclasses.replace(cfg.init, min_matches=60, ransac_iterations=150), device=device)
+    init_cfg = dataclasses.replace(cfg.init, min_matches=60, ransac_iterations=150)
+    init = make_multiseq_init_runner(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker, init_cfg,
+                                     device=device)
     reset_counters()
     t0 = time.perf_counter()
     res = init(frames, e.args[5], list(range(ini["batch"])))
@@ -2058,6 +2075,8 @@ def phase_multiseq(device, loop_entry, results):
         work = res["state"][b, f0 + 1:] == 2
         if not bool(work.all()) or not bool(torch.isfinite(res["R"][b]).all()):
             raise AssertionError(f"init runner sequence {b} did not stay WORKING")
+    dist_in = {"init": {"args": (frames, e.args[5], list(range(ini["batch"]))),
+                        "init_cfg": init_cfg, "out": res, "launches": paths["multiseq_init"]}}
 
     # the mapping runner: B sequences with growing maps from the bootstrap
     mp = MULTISEQ_MAP
@@ -2106,7 +2125,10 @@ def phase_multiseq(device, loop_entry, results):
         # LM's reordered sums carried through the inserts' local BA
         if not same_events or d_inl > 1 or dpose > MULTISEQ_MAP_POSE_TOL:
             raise AssertionError(f"mapping sequence {b} parts from the single-sequence loop")
-    return paths, e
+    dist_in["mapping"] = {"args": (frames, mB, R0, t0_, K, fids, [kfc] * mp["batch"],
+                                   [ref] * mp["batch"]),
+                          "out": (mo, oo), "launches": paths["multiseq_mapping"]}
+    return paths, e, dist_in
 
 
 # the multi-device phase (parallel/{distributed,matcher_sharded,ba_sharded,
@@ -2274,7 +2296,191 @@ def _dist_ranks(mesh, payload):
     out["dp"], out["dp_launches"], out["dp_s"] = _dist_dp(
         mesh, torch.tensor(dp["frames"], device=dev),
         [torch.tensor(a, device=dev) for a in dp["args"]])
+    for mode, (got, launches, host) in _dist_runners(dev, mesh.group,
+                                                     payload["runners"]).items():
+        out[mode], out[f"{mode}_launches"], out[f"{mode}_s"] = got, launches, host
     return out
+
+
+def _on(x, dev):
+    """``distributed._to_host``'s inverse: numpy arrays to tensors on
+    ``dev``."""
+    if isinstance(x, np.ndarray):
+        return torch.tensor(x, device=dev)
+    if hasattr(x, "_fields"):
+        return type(x)(*(_on(v, dev) for v in x))
+    if isinstance(x, tuple):
+        return tuple(_on(v, dev) for v in x)
+    return x
+
+
+def _named(x, prefix=""):
+    """{field path: numpy array} of a runner's output (a dict, or the
+    mapping runner's (SlamMap, DeviceLoopOutputs))."""
+    if isinstance(x, dict):
+        items = x.items()
+    elif hasattr(x, "_fields"):
+        items = zip(x._fields, x)
+    elif isinstance(x, tuple):
+        items = enumerate(x)
+    else:
+        return {prefix: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)}
+    out = {}
+    for k, v in items:
+        out.update(_named(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+# the events a DP run of a runner must share with the one-process [B] run
+DIST_RUNNER_EVENTS = {"init": ("initialized", "init_frame", "state"),
+                      "mapping": ("1.inserted_kf", "1.lost", "1.n_kps")}
+# the mapping runner's poses within the multiseq bound; the init runner's
+# rotations at their init frames within MULTISEQ_POSE_TOL, and its poses
+# after tracking from there within bounds set from the H100's reading of
+# this comparison (R 1.57e-4, t 2.14e-4) with 3-5x room. Which batched
+# operation rounds otherwise at B = 1 than at B = 2 on the card is not
+# known (ROADMAP C15); the eigen and SVD solvers give one matrix the same
+# bits alone as in a batch (``_batched_solver_probe``)
+DIST_MAP_POSES = (("1.R", "1.t"), MULTISEQ_MAP_POSE_TOL)
+DIST_INIT_POSES = {"R_at_init": MULTISEQ_POSE_TOL, "R": 5e-4, "t": 1e-3}
+
+
+def _batched_solver_probe(device) -> dict:
+    """Whether ``torch.linalg.eigh`` of a 9x9 normal matrix, ``svd`` of a
+    3x3, a batched product of points by rotations ([b, 1000, 3] @ [b, 3, 3])
+    and a normal matrix ([b, 9, 1000] @ [b, 1000, 9]) give one problem the
+    same bits alone ([1, ...]) as in a batch of two."""
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn(2, 9, 9, generator=g)
+    M = (A.transpose(-1, -2) @ A).to(device)
+    S = torch.randn(2, 3, 3, generator=g).to(device)
+    X = torch.randn(2, 1000, 3, generator=g).to(device)
+    E = torch.randn(2, 1000, 9, generator=g).to(device)
+
+    def alone(f, *a):
+        return bool(torch.equal(f(*(x[:1] for x in a)), f(*a)[:1]))
+
+    return {"eigh_9x9": alone(lambda m: torch.linalg.eigh(m).eigenvectors, M),
+            "svd_3x3": alone(lambda m: torch.linalg.svd(m).U, S),
+            "bmm_points_by_R": alone(lambda x, r: x @ r.transpose(-1, -2), X, S),
+            "bmm_normal_9x9": alone(lambda e: e.transpose(-1, -2) @ e, E)}
+
+
+def _init_pose_gaps(got, ref) -> dict:
+    """The init runner's poses against the [B] run's, in
+    ``DIST_INIT_POSES``' terms."""
+    t, tr = got["t"].astype(np.float64), ref["t"].astype(np.float64)
+    if not np.array_equal(np.linalg.norm(t, axis=-1) > 0, np.linalg.norm(tr, axis=-1) > 0):
+        raise AssertionError("the init runner's translations are set on other frames")
+    at_init = [(b, int(f)) for b, f in enumerate(ref["init_frame"]) if f >= 0]
+    return {"R_at_init": max((float(np.abs(got["R"][b, f] - ref["R"][b, f]).max())
+                              for b, f in at_init), default=0.0),
+            "R": float(np.abs(got["R"] - ref["R"]).max()),
+            "t": float(np.abs(t - tr).max())}
+
+
+def _dist_runners(device, group, runners):
+    """The init and mapping runners (the modes of ``runners``) across
+    ``group`` (None: this process) on ``device``, on
+    ``runners[mode]["args"]`` (the whole batch, every rank the same; the
+    init runner's ``init_cfg``): per mode (the output, launches, host s)."""
+    from orb_slam_tracking_tpu_torch.entry import DEVICE_LOOP_CAPS, DEVICE_LOOP_CONFIG as cfg
+    from orb_slam_tracking_tpu_torch.parallel.multiseq import (
+        make_multiseq_init_runner, make_multiseq_mapping_runner)
+
+    out = {}
+    for mode in runners:
+        if mode == "init":
+            run = make_multiseq_init_runner(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
+                                            runners["init"]["init_cfg"], device=device,
+                                            group=group)
+        else:
+            run = make_multiseq_mapping_runner(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker,
+                                               device=device, group=group, **DEVICE_LOOP_CAPS)
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        got = run(*_on(runners[mode]["args"], device))
+        torch.cuda.synchronize()
+        out[mode] = (got, read_counters(), time.perf_counter() - t0)
+    return out
+
+
+def _runner_rows(device, dist_in, size):
+    """The one-process runners on each rank's rows of the batch: per mode,
+    per rank, ({field: numpy}, launches)."""
+    from orb_slam_tracking_tpu_torch.parallel.multiseq import _rows
+
+    out = {}
+    for mode, shared in (("init", 1), ("mapping", 4)):
+        args = dist_in[mode]["args"]
+        per = args[0].shape[0] // size
+        out[mode] = []
+        for r in range(size):
+            one = {mode: {"args": tuple(a if i == shared else _rows(a, r * per, (r + 1) * per)
+                                        for i, a in enumerate(args)),
+                          "init_cfg": dist_in["init"]["init_cfg"]}}
+            ran = _dist_runners(device, None, one)[mode]
+            out[mode].append((_named(ran[0]), ran[1]))
+    return out
+
+
+def _check_runners(name, ranks, dist_in, rows, smi):
+    """The init and mapping runners of a world of 2 (or more): on every
+    rank, each rank's rows bit for bit the one-process runner on those
+    rows, and the whole batch with the one-process [B] run's events and
+    its poses within ``DIST_INIT_POSES`` / ``DIST_MAP_POSES``; launches
+    summed over the ranks equal to the row runs' summed (B1 and B4f once a
+    frame a rank)."""
+    paths = {}
+    size = len(ranks)
+    for mode in ("init", "mapping"):
+        ref = _named(dist_in[mode]["out"])
+        per = dist_in[mode]["args"][0].shape[0] // size
+        T = dist_in[mode]["args"][0].shape[1]
+        gaps = {}
+        for r in ranks:
+            got = _named(r[mode])
+            if set(got) != set(ref):
+                raise AssertionError(f"{name}_{mode}: rank {r['rank']} returned {sorted(got)}")
+            for q, (want, _) in enumerate(rows[mode]):
+                for k, v in want.items():
+                    if not np.array_equal(got[k][q * per:(q + 1) * per], v):
+                        raise AssertionError(f"{name}_{mode}: rank {r['rank']}'s {k} of rank "
+                                             f"{q}'s rows differs from the one-process runner "
+                                             f"on those rows")
+            for k in DIST_RUNNER_EVENTS[mode]:
+                if not np.array_equal(got[k], ref[k]):
+                    raise AssertionError(f"{name}_{mode}: {k} differs from the [B] run")
+            if mode == "init":
+                gap = _init_pose_gaps(got, ref)
+                bound = DIST_INIT_POSES
+            else:
+                keys, tol = DIST_MAP_POSES
+                gap = {"pose": max(float(np.abs(got[k] - ref[k]).max()) for k in keys)}
+                bound = {"pose": tol}
+            gaps = {k: max(v, gaps.get(k, 0.0)) for k, v in gap.items()}
+            if any(gap[k] > bound[k] for k in bound):
+                raise AssertionError(f"{name}_{mode}: poses part from the [B] run by {gap}, "
+                                     f"bounds {bound}")
+        launches = {k: sum(r[f"{mode}_launches"][k] for r in ranks) for k in ranks[0][
+            f"{mode}_launches"]}
+        want = {k: sum(c[k] for _, c in rows[mode]) for k in launches}
+        if launches != want or launches["fast_score"] != size * T \
+                or launches["orient_describe"] != size * T:
+            raise AssertionError(f"{name}_{mode}: launches {launches}, expected {want}")
+        paths[f"{name}_{mode}"] = launches
+        events = ", ".join(f"{k} {ref[k].tolist()}" for k in DIST_RUNNER_EVENTS[mode][:2])
+        log("dist", f"{name}: the {mode} runner at B = {per * size} x {T} frames over {size} "
+            f"ranks: each rank's rows bit for bit the one-process runner on them; the batch "
+            f"with the [B] run's events ({events}), poses apart by {gaps} (bounds "
+            f"{DIST_INIT_POSES if mode == 'init' else DIST_MAP_POSES[1]}); launches "
+            f"{launches}; host {max(r[f'{mode}_s'] for r in ranks):.2f} s (world 1 "
+            f"{dist_in[mode]['w1_s']:.2f}); {smi}")
+        if mode == "init":
+            log("dist", f"one problem alone and in a batch of two bit for bit: "
+                f"{_batched_solver_probe(dist_in[mode]['args'][0].device)}")
+    return paths
 
 
 def _ba_parts(ranks, key="ba"):
@@ -2349,14 +2555,14 @@ def _check_world(name, ranks, w1, smi):
             f"{name}_dp": summed("dp_launches")}
 
 
-def phase_dist(device, e, results, smi):
+def phase_dist(device, e, dist_in, results, smi):
     """The multi-device modes on the card; see the module docstring."""
     from orb_slam_tracking_tpu_torch.entry import DEVICE_LOOP_CONFIG as cfg
     from orb_slam_tracking_tpu_torch.ops import hamming, matcher
     from orb_slam_tracking_tpu_torch.ops.matcher import match_descriptors
     from orb_slam_tracking_tpu_torch.optim.ba import bundle_adjust
     from orb_slam_tracking_tpu_torch.parallel.distributed import (
-        make_global_array, replicate, single_process_group, spawn)
+        _to_host, make_global_array, replicate, single_process_group, spawn)
     from orb_slam_tracking_tpu_torch.parallel.matcher_sharded import match_descriptors_tp
     from orb_slam_tracking_tpu_torch.parallel.multiseq import _no_stats
     from orb_slam_tracking_tpu_torch.parallel.pipeline import track_sequential
@@ -2463,6 +2669,23 @@ def phase_dist(device, e, results, smi):
         log("dist", f"world 1: DP at B = {B} x {T} frames bit for bit PR 9's [B] runner; "
             f"launches {paths['dist_dp']}; aggregate {B * T / w1['dp_s']:.2f} frames/s; {smi}")
 
+        # the init and mapping runners through the group of one against
+        # [multiseq]'s one-process [B] runs
+        for mode, (got, launches, host) in _dist_runners(device, mesh.group, dist_in).items():
+            paths[f"dist_w1_{mode}"] = launches
+            dist_in[mode]["w1_s"] = host
+            want = _named(dist_in[mode]["out"])
+            got = _named(got)
+            if set(got) != set(want) or not all(np.array_equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"world 1: the {mode} runner differs from the [B] runner")
+            if launches != dist_in[mode]["launches"]:
+                raise AssertionError(f"world 1: the {mode} runner launched {launches}, the [B] "
+                                     f"runner {dist_in[mode]['launches']}")
+            log("dist", f"world 1: the {mode} runner at B = {dist_in[mode]['args'][0].shape[0]}"
+                f" x {dist_in[mode]['args'][0].shape[1]} frames bit for bit the one-process "
+                f"[B] runner ({len(want)} fields, bool ones through the uint8 gather); launches "
+                f"{launches}; host {host:.2f} s; {smi}")
+
     # the sequential step the pipeline is held to, on this card
     step = TrackingStep(cfg.camera, cfg.orb, cfg.matcher, cfg.tracker, device=device)
     track_sequential(step, pp_frames[:2], *pp_args)  # warm-up
@@ -2475,7 +2698,13 @@ def phase_dist(device, e, results, smi):
     w1["seq_device_ms"] = device_ms(lambda: track_sequential(step, pp_frames[:n], *pp_args),
                                     runs=1) / n
 
-    payload = {"tp": tp, "ba": _ba_inputs(2),
+    # the one-process runners on each rank's rows, which the ranks' rows
+    # must equal bit for bit
+    rows = _runner_rows(device, dist_in, 2)
+    payload = {"runners": {"init": {"args": _to_host(dist_in["init"]["args"]),
+                                    "init_cfg": dist_in["init"]["init_cfg"]},
+                           "mapping": {"args": _to_host(dist_in["mapping"]["args"])}},
+               "tp": tp, "ba": _ba_inputs(2),
                "pipeline": {"frames": pp_frames.cpu().numpy(),
                             "args": [a.cpu().numpy() for a in pp_args]},
                "dp": {"frames": dp_frames.cpu().numpy(),
@@ -2487,10 +2716,12 @@ def phase_dist(device, e, results, smi):
     log("dist", f"world 2 (gloo, both ranks on {ranks[0]['device']}): spawned and ran in "
         f"{time.perf_counter() - t0:.1f} s")
     paths.update(_check_world("dist_gloo2", ranks, w1, smi))
+    paths.update(_check_runners("dist_gloo2", ranks, dist_in, rows, smi))
     if torch.cuda.device_count() >= 2:
         ranks = spawn(_dist_ranks, 2, "nccl", "cuda", (payload,), timeout=600)
         log("dist", f"world 2 (nccl, ranks on {[r['device'] for r in ranks]})")
         paths.update(_check_world("dist_nccl2", ranks, w1, smi))
+        paths.update(_check_runners("dist_nccl2", ranks, dist_in, rows, smi))
     else:
         log("dist", "nccl world 2: not run, 1 card")
     want = {"dist_gloo2_tp": {"hamming_gated_min": 2},
@@ -2535,12 +2766,16 @@ def main() -> int:
     paths["tracker"], paths["tracker_rescue"] = timed("tracker", phase_tracker, device)
     paths["loop"], paths["loop_ratio"] = timed("loop", phase_loop, device)
     paths["device_loop"] = timed("device_loop", phase_device_loop, device, loop_entry)
-    ms_paths, ms_entry = timed("multiseq", phase_multiseq, device, loop_entry, results)
+    ms_paths, ms_entry, dist_in = timed("multiseq", phase_multiseq, device, loop_entry, results)
     paths.update(ms_paths)
-    paths.update(timed("dist", phase_dist, device, ms_entry, results, smi))
+    paths.update(timed("dist", phase_dist, device, ms_entry, dist_in, results, smi))
     paths["per_level"] = timed("per_level", phase_per_level, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as tmp:
         paths.update(timed("tum", phase_tum, device, tmp))
+    # the measurement tools and studies: no phase drives them, so they are
+    # only imported, and the check below sees what they import
+    for tool in MEASUREMENT_TOOLS:
+        importlib.import_module(f"orb_slam_tracking_tpu_torch.tools.{tool}")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "orb_slam_tracking_tpu"))
     if foreign:
@@ -2548,7 +2783,8 @@ def main() -> int:
     need = {f"orb_slam_tracking_tpu_torch.{m}" for m in (
         "io", "io.images", "io.tum", "io.native_loader", "ops.harris", "tools.eval_tum",
         "tools.make_synthetic_tum", "utils.metrics", "utils.synthetic", "parallel.distributed",
-        "parallel.matcher_sharded", "parallel.ba_sharded", "parallel.pipeline")}
+        "parallel.matcher_sharded", "parallel.ba_sharded", "parallel.pipeline",
+        "parallel.multiseq")}
     if not need <= set(sys.modules):
         raise AssertionError(f"the port's modules were not all driven: {need - set(sys.modules)}")
     for k in results:

@@ -36,7 +36,8 @@ one-sequence run reaches there.
 ``__graft_entry__.dryrun_multichip``: ``world_size`` ranks over
 ``torch.distributed`` run one step of every multi-device mode at tiny
 shapes: DP tracking across the ranks, the tensor-parallel matcher, the
-two-stage pipeline (on ranks 0 and 1) and the point-sharded BA.
+two-stage pipeline (on ranks 0 and 1), the point-sharded BA, and the
+init and mapping runners across the ranks.
 """
 
 from __future__ import annotations
@@ -51,9 +52,11 @@ from .config import (CameraConfig, InitConfig, MatcherConfig, OrbConfig,
                      SystemConfig, TrackerConfig)
 from .convert import map_from_numpy
 from .device import DEFAULT_DEVICE, resolve_device
-from .parallel.multiseq import make_multiseq_sequence_runner, make_multiseq_step
+from .parallel.multiseq import (make_multiseq_init_runner, make_multiseq_mapping_runner,
+                                make_multiseq_sequence_runner, make_multiseq_step)
 from .slam.device_mapping import DeviceSequenceLoop, make_device_sequence_loop
 from .slam.fused_step import TrackingStep
+from .slam.map import SlamMap, empty_map
 from .slam.tracker import Tracker, TrackState
 from .slam.two_view_init import TwoViewInitializer
 from .utils.synthetic import CornerField, make_trajectory, render_frame
@@ -328,6 +331,31 @@ def _dryrun_rank(mesh) -> dict:
     out["ba_cost"] = bundle_adjust_sharded(
         replicate(mesh, kf_R), replicate(mesh, kf_t), G(pts), G(bk), G(bp), G(buv), G(bw), G(bv),
         replicate(mesh, fixed), G(np.ones(nP, bool)), K, iterations=3, group=mesh.group)[3]
+
+    # the device-side bootstrap: B sequences of T random frames, B / world
+    # on each rank (``__graft_entry__.py:137-152``)
+    init = make_multiseq_init_runner(cam, ocfg, mcfg, TrackerConfig(),
+                                     InitConfig(min_matches=8, ransac_iterations=16),
+                                     point_capacity=16, device=dev, group=mesh.group)
+    seq = torch.tensor(rng.uniform(0, 255, (B, T, H, W)).astype(np.float32), device=dev)
+    boot = init(seq, K, list(range(B)))
+    out["init_state"], out["init_R"] = boot["state"], boot["R"]
+
+    # B sequences with growing maps, each from sequence 0's map with
+    # keyframe 0 valid (``__graft_entry__.py:154-181``)
+    tcfg = TrackerConfig(max_map_points=Pcap, max_keyframes=4, ba_window=2, ba_iterations=1,
+                         max_frames=2, min_tracked_inliers=4, use_loop_closing=False,
+                         use_bow=False)
+    mrun = make_multiseq_mapping_runner(cam, ocfg, mcfg, tcfg, tri_cap=8, obs_cap=16,
+                                        device=dev, group=mesh.group)
+    m1 = empty_map(tcfg, kp_capacity=ocfg.max_keypoints, device=dev)
+    m1 = m1._replace(pts=map_pts[0], desc=map_desc[0], pt_valid=map_valid[0],
+                     kf_valid=torch.arange(tcfg.max_keyframes, device=dev) == 0)
+    mB = SlamMap(*(x.expand((B,) + x.shape).contiguous() for x in m1))
+    seq2 = torch.tensor(rng.uniform(0, 255, (B, 2, H, W)).astype(np.float32), device=dev)
+    m_out, loop_out = mrun(seq2, mB, R, t, K, [1] * B, [1] * B, [1] * B)
+    out["map_R"], out["map_n_kps"] = loop_out.R, loop_out.n_kps
+    out["map_inserted_kf"], out["map_pt_valid"] = loop_out.inserted_kf, m_out.pt_valid
     return out
 
 
@@ -337,8 +365,11 @@ def dryrun_multichip(world_size: int, backend: str = "nccl",
     ``device`` (``"cuda"``: the card ``r % device_count``), each running
     one step of every multi-device mode (``_dryrun_rank``). Returns each
     rank's outputs (numpy): ``dp_n_kps [world]``, ``tp_matches [16]``,
-    ``pp_R [3, 3, 3]`` (ranks 0 and 1, when ``world_size >= 2``) and
-    ``ba_cost``."""
+    ``pp_R [3, 3, 3]`` (ranks 0 and 1, when ``world_size >= 2``),
+    ``ba_cost``, the init runner's ``init_state [world, 3]`` and ``init_R
+    [world, 3, 3, 3]``, and the mapping runner's ``map_R [world, 2, 3,
+    3]``, ``map_n_kps`` and ``map_inserted_kf [world, 2]`` and
+    ``map_pt_valid [world, 8 x world]``."""
     from .parallel.distributed import spawn
 
     return spawn(_dryrun_rank, world_size, backend, device)

@@ -32,8 +32,15 @@ backend raises.
   array, or all of it, on the rank's device;
 - ``spawn``: ``world_size`` ranks as new processes (the spawn start
   method, since CUDA cannot be initialized again in a forked child), each
-  in a group on a free localhost port, and their results in rank order;
-- ``single_process_group``: a group of one in this process.
+  in a group whose store is a file in a fresh temporary directory, and
+  their results in rank order;
+- ``single_process_group``: a group of one in this process, on the same
+  kind of store.
+
+A file store, not a TCP port: a port found free and then released can be
+taken by another process before rank 0's store binds it, and groups
+formed at once (parallel test workers) would then join each other's
+store or fail to bind.
 
 The CUDA kernels are built at first use under a file lock
 (``kernels._build``), so ranks that reach their first kernel together
@@ -46,7 +53,8 @@ import contextlib
 import multiprocessing
 import os
 import queue as queue_mod
-import socket
+import shutil
+import tempfile
 import time
 import traceback
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
@@ -59,7 +67,7 @@ from ..device import resolve_device
 
 __all__ = ["Mesh", "initialize_from_env", "process_index", "process_count", "global_mesh",
            "group_rank_size", "make_global_array", "replicate", "all_gather", "broadcast",
-           "free_port", "spawn", "single_process_group"]
+           "spawn", "single_process_group"]
 
 
 class Mesh(NamedTuple):
@@ -150,7 +158,10 @@ def replicate(mesh: Mesh, host_array) -> torch.Tensor:
 
 def all_gather(t: torch.Tensor, group: Optional[dist.ProcessGroup], size: int) -> torch.Tensor:
     """Every rank's ``t`` (one shape on all ranks) stacked along a new dim
-    0 in rank order: JAX's ``all_gather`` (``[D, ...]``)."""
+    0 in rank order: JAX's ``all_gather`` (``[D, ...]``). A bool tensor
+    travels as uint8 (the same byte), so no backend has to take bool."""
+    if t.dtype == torch.bool:
+        return all_gather(t.to(torch.uint8), group, size).to(torch.bool)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(size)]
     dist.all_gather(parts, t, group=group)
@@ -164,25 +175,29 @@ def broadcast(t: torch.Tensor, group_src: int, group: Optional[dist.ProcessGroup
     dist.broadcast(t, src=src, group=group)
 
 
-def free_port() -> int:
-    """A free TCP port on the loopback interface."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def _file_store():
+    """A ``file://`` init method in a fresh temporary directory, removed on
+    exit."""
+    tmp = tempfile.mkdtemp(prefix="osltt_group_")
+    try:
+        yield "file://" + os.path.join(tmp, "store")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 @contextlib.contextmanager
 def single_process_group(backend: str, device: torch.device | str):
-    """A default group of one rank in this process on a free localhost
-    port, destroyed on exit; yields its ``global_mesh``."""
+    """A default group of one rank in this process on a file store,
+    destroyed on exit; yields its ``global_mesh``."""
     device = resolve_device(device)
     kw = {"device_id": device} if backend == "nccl" else {}
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}",
-                            world_size=1, rank=0, **kw)
-    try:
-        yield global_mesh(group=None, device=device)
-    finally:
-        dist.destroy_process_group()
+    with _file_store() as init_method:
+        dist.init_process_group(backend, init_method=init_method, world_size=1, rank=0, **kw)
+        try:
+            yield global_mesh(group=None, device=device)
+        finally:
+            dist.destroy_process_group()
 
 
 def _to_host(obj):
@@ -199,8 +214,11 @@ def _to_host(obj):
 
 
 def _rank_main(fn, rank, world_size, backend, device, init_method, args, results):
-    """One spawned rank: join the group, run ``fn(mesh, *args)``, leave
-    the group, put (rank, traceback or None, result) on ``results``."""
+    """One spawned rank: join the group, run ``fn(mesh, *args)``, put
+    (rank, traceback or None, result) on ``results``, then leave the group.
+    The report goes first: a failing rank's teardown aborts its peers'
+    collectives, and their reports must not be the only ones the parent
+    sees."""
     error, value = None, None
     try:
         os.environ["LOCAL_RANK"] = str(rank)
@@ -215,52 +233,90 @@ def _rank_main(fn, rank, world_size, backend, device, init_method, args, results
         value = _to_host(fn(global_mesh(group=None, device=dev), *args))
     except Exception:  # reported to the parent, which raises
         error = traceback.format_exc()
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
     results.put((rank, error, value))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# what a rank reports when a peer's failure tore its collective down (gloo,
+# NCCL): not a root cause
+_ABORT_MARKS = ("Connection closed by peer", "Connection reset by peer", "Broken pipe",
+                "NCCL communicator was aborted", "ncclRemoteError", "DistBackendError",
+                "DistNetworkError")
+# seconds ``spawn`` waits, after the first failure, for the other ranks' reports
+FAILURE_GRACE = 5.0
+
+
+def _is_abort(error: str) -> bool:
+    return any(mark in error for mark in _ABORT_MARKS)
+
+
+def _failure_message(errors: dict, died: dict, silent: List[int], waited: str) -> str:
+    """Every failed rank's traceback, root causes (errors that are not a
+    collective abort) first, then by rank; then the ranks that died, and
+    those that gave no report."""
+    parts = [f"rank {r} failed" + (" (a collective torn down by a failing peer)"
+                                   if _is_abort(errors[r]) else "") + f":\n{errors[r]}"
+             for r in sorted(errors, key=lambda r: (_is_abort(errors[r]), r))]
+    parts += [f"rank {r} exited with code {c}" for r, c in sorted(died.items())]
+    if silent:
+        parts.append(f"ranks {silent} gave no report within {waited}")
+    return "\n".join(parts)
 
 
 def spawn(fn: Callable[..., Any], world_size: int, backend: str,
           device: torch.device | str = "cuda", args: Sequence = (),
           timeout: float = 900.0) -> List[Any]:
     """Run ``fn(mesh, *args)`` on ``world_size`` new processes that form a
-    default group of ``backend`` on a free localhost port; rank r's device
-    is ``device`` (``"cuda"``: the card ``r % device_count``). ``fn`` and
-    ``args`` are pickled (``fn`` by import path). Returns each rank's
-    result in rank order, tensors as numpy arrays. Raises with the rank's
-    traceback if a rank fails or dies, and after ``timeout`` seconds; the
-    other ranks are then stopped."""
+    default group of ``backend`` on a file store in a fresh temporary
+    directory; rank r's device is ``device`` (``"cuda"``: the card ``r %
+    device_count``). ``fn`` and ``args`` are pickled (``fn`` by import
+    path). Returns each rank's result in rank order, tensors as numpy
+    arrays.
+
+    If a rank fails or dies, ``spawn`` waits up to ``FAILURE_GRACE``
+    seconds for the other ranks' reports, stops the ranks still running and
+    raises with every failed rank's traceback, the root cause first: a rank
+    whose error is not a collective aborted by its peer's failure. After
+    ``timeout`` seconds it raises naming the ranks that have not reported,
+    and stops them."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    init_method = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world_size, backend, str(device),
-                                                  init_method, tuple(args), results))
-             for r in range(world_size)]
-    for p in procs:
-        p.start()
-    out, failure = {}, None
-    deadline = time.monotonic() + timeout
-    try:
-        while len(out) < world_size and failure is None:
-            try:
-                rank, error, value = results.get(timeout=1.0)
-            except queue_mod.Empty:
-                dead = [r for r, p in enumerate(procs) if r not in out and p.exitcode not in (None, 0)]
-                if dead:
-                    failure = f"rank {dead[0]} exited with code {procs[dead[0]].exitcode}"
-                elif time.monotonic() > deadline:
-                    failure = f"the ranks did not finish within {timeout} s"
-                continue
-            if error is not None:
-                failure = f"rank {rank} failed:\n{error}"
-            out[rank] = value
-    finally:
+    out, errors, died = {}, {}, {}
+    with _file_store() as init_method:
+        procs = [ctx.Process(target=_rank_main, args=(fn, r, world_size, backend, str(device),
+                                                      init_method, tuple(args), results))
+                 for r in range(world_size)]
         for p in procs:
-            p.join(timeout=30 if failure is None else 1)
-            if p.is_alive():
-                p.terminate()
-                p.join()
-    if failure is not None:
-        raise RuntimeError(failure)
+            p.start()
+        deadline, first_failure = time.monotonic() + timeout, None
+        try:
+            while len(out) + len(errors) + len(died) < world_size:
+                try:
+                    rank, error, value = results.get(timeout=0.2)
+                    died.pop(rank, None)
+                    if error is None:
+                        out[rank] = value
+                    else:
+                        errors[rank] = error
+                except queue_mod.Empty:
+                    died.update((r, p.exitcode) for r, p in enumerate(procs)
+                                if r not in out and r not in errors and p.exitcode not in (None, 0))
+                if (errors or died) and first_failure is None:
+                    first_failure = time.monotonic()
+                    deadline = min(deadline, first_failure + FAILURE_GRACE)
+                if time.monotonic() > deadline:
+                    break
+        finally:
+            failed = len(out) < world_size
+            for p in procs:
+                p.join(timeout=1 if failed else 30)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+    if len(out) < world_size:
+        silent = [r for r in range(world_size) if r not in out and r not in errors and r not in died]
+        waited = f"{timeout} s" if first_failure is None else \
+            f"{FAILURE_GRACE} s of the first failure"
+        raise RuntimeError(_failure_message(errors, died, silent, waited))
     return [out[r] for r in range(world_size)]

@@ -11,13 +11,15 @@ frame of B sequences launches the extraction's FAST and
 orient-and-describe kernels once and the fused Hamming kernel once per
 match, whatever B is.
 
-The step and the frozen-map sequence runner also spread B over the ranks
-of a process group (``group``, the JAX mesh's ``dp`` axis across
-devices): every rank is given the whole batch, runs its contiguous B/D
-sequences through the [B] path on its own device, and the outputs are
-all-gathered in sequence order, so every rank returns the whole batch's.
-``group=None`` keeps the batch on this process's device. The init and
-mapping runners stay on one device.
+Every runner also spreads B over the ranks of a process group (``group``,
+the JAX mesh's ``dp`` axis across devices): every rank is given the
+whole batch, runs its contiguous B/D sequences through the [B] path on
+its own device (one sequence a rank is a batch of one), and the outputs
+are all-gathered in sequence order, so every rank returns the whole
+batch's. No collective runs inside a run's frame loop: the init and
+mapping runners' host reads a frame cover the rank's own rows only, and
+the final gather is the one collective. ``group=None`` keeps the batch
+on this process's device.
 
 Four runners, as the JAX module's:
 
@@ -84,27 +86,49 @@ def _no_stats(map_pts: torch.Tensor):
     return zn, zd, zd
 
 
-def _dp(group, fn):
+def _rows(x, lo: int, hi: int):
+    """Rows ``lo:hi`` of the leading [B] of a tensor, of every field of a
+    NamedTuple (a ``SlamMap``), or of a list of host values."""
+    if isinstance(x, torch.Tensor):
+        return x[lo:hi]
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_rows(v, lo, hi) for v in x))
+    return list(x)[lo:hi]
+
+
+def _gathered(x, group, size: int):
+    """Every rank's rows of ``x`` (a tensor, or a dict, tuple or NamedTuple
+    of them, one shape on every rank) concatenated in rank order along
+    the leading axis."""
+    if isinstance(x, torch.Tensor):
+        return all_gather(x, group, size).reshape((size * x.shape[0],) + x.shape[1:])
+    if isinstance(x, dict):
+        return {k: _gathered(v, group, size) for k, v in x.items()}
+    if hasattr(x, "_fields"):
+        return type(x)(*(_gathered(v, group, size) for v in x))
+    return type(x)(_gathered(v, group, size) for v in x)
+
+
+def _dp(group, fn, shared=(-1,)):
     """``fn`` over this rank's contiguous rows of the leading [B] of every
-    argument but the last (``K``), its outputs all-gathered in sequence
-    order; ``fn`` itself when ``group`` is None."""
+    argument but those at the positions ``shared`` (``K``), its outputs
+    all-gathered in sequence order; ``fn`` itself when ``group`` is None.
+    A sharded argument is a tensor, a NamedTuple of tensors or a list of B
+    host values; the first is the images. B must divide over the ranks:
+    that is checked before any collective."""
     if group is None:
         return fn
 
     def sharded(*args):
+        shared_at = {i % len(args) for i in shared}
         rank, size = group_rank_size(group, args[0].device)
         B = args[0].shape[0]
         if B % size:
             raise ValueError(f"{B} sequences do not divide over {size} ranks")
         per = B // size
-        out = fn(*(a[rank * per:(rank + 1) * per] for a in args[:-1]), args[-1])
-
-        def gathered(x):
-            return all_gather(x, group, size).reshape((B,) + x.shape[1:])
-
-        if isinstance(out, dict):
-            return {k: gathered(v) for k, v in out.items()}
-        return type(out)(*(gathered(x) for x in out))
+        lo, hi = rank * per, (rank + 1) * per
+        out = fn(*(a if i in shared_at else _rows(a, lo, hi) for i, a in enumerate(args)))
+        return _gathered(out, group, size)
 
     return sharded
 
@@ -213,11 +237,14 @@ class MultiseqInitRunner:
     indexed by (sequence, frame), as the JAX runner splits each
     sequence's key once a frame whatever its state: ``uniforms(b, f)`` ->
     ``(u_h, u_f)``, each ``[ransac_iterations, 8]``; by default a
-    generator seeded with ``seeds[b] * 2**20 + f``."""
+    generator seeded with ``seeds[b] * 2**20 + f``. With a ``group``, a
+    rank runs its rows of the batch and ``b`` stays the sequence's index in
+    the whole batch."""
 
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: OrbConfig, matcher_cfg: MatcherConfig,
                  tracker_cfg: TrackerConfig, init_cfg: InitConfig, point_capacity: int = 512,
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: torch.device | str = DEFAULT_DEVICE,
+                 group: Optional[torch.distributed.ProcessGroup] = None):
         self.cam_cfg, self.orb_cfg, self.matcher_cfg = cam_cfg, orb_cfg, matcher_cfg
         self.tracker_cfg, self.init_cfg = tracker_cfg, init_cfg
         self.point_capacity = point_capacity
@@ -229,15 +256,21 @@ class MultiseqInitRunner:
         self._two_view = torch.func.vmap(
             lambda x1, x2, v, K, u_h, u_f: initialize_two_view(x1, x2, v, K, u_h, u_f, init_cfg),
             in_dims=(0, 0, 0, None, 0, 0))
+        self._sharded = _dp(group, self._run, shared=(1,))
 
-    def _draws(self, seeds, b: int, f: int):
+    def _draws(self, seeds, seqs, b: int, f: int):
         if self.uniforms is not None:
-            return self.uniforms(b, f)
+            return self.uniforms(seqs[b], f)
         g = torch.Generator(device=self.device).manual_seed(int(seeds[b]) * 2 ** 20 + f)
         shape = (self.init_cfg.ransac_iterations, 8)
         return tuple(torch.rand(shape, generator=g, device=self.device) for _ in range(2))
 
     def __call__(self, images: torch.Tensor, K: torch.Tensor, seeds) -> Dict[str, torch.Tensor]:
+        return self._sharded(images, K, list(seeds), list(range(images.shape[0])))
+
+    def _run(self, images: torch.Tensor, K: torch.Tensor, seeds, seqs) -> Dict[str, torch.Tensor]:
+        """The runner on the rows given; ``seqs`` are their indices in the
+        whole batch, by which the draws go."""
         B, T = images.shape[:2]
         Pc, icfg, tcfg = self.point_capacity, self.init_cfg, self.tracker_cfg
         dev = images.device
@@ -293,7 +326,7 @@ class MultiseqInitRunner:
                 x1 = torch.take_along_dim(torch.stack([ref[b][1] for b in attempt]), i1, dim=1)
                 aidx = torch.tensor(attempt, device=dev)
                 x2 = torch.take_along_dim(xy_un[aidx], i2, dim=1)
-                u_h, u_f = (torch.stack(u) for u in zip(*(self._draws(seeds, b, f)
+                u_h, u_f = (torch.stack(u) for u in zip(*(self._draws(seeds, seqs, b, f)
                                                            for b in attempt)))
                 tv = self._two_view(x1, x2, pv, K, u_h, u_f)
                 for k, (b, ok) in enumerate(zip(attempt, tv.success.tolist())):  # a host read
@@ -344,20 +377,26 @@ class MultiseqInitRunner:
 def make_multiseq_init_runner(cam_cfg: CameraConfig, orb_cfg: OrbConfig,
                               matcher_cfg: MatcherConfig, tracker_cfg: TrackerConfig,
                               init_cfg: InitConfig, point_capacity: int = 512,
-                              device: torch.device | str = DEFAULT_DEVICE) -> MultiseqInitRunner:
-    """The device-side bootstrap of B sequences (see ``MultiseqInitRunner``)."""
+                              device: torch.device | str = DEFAULT_DEVICE,
+                              group: Optional[torch.distributed.ProcessGroup] = None
+                              ) -> MultiseqInitRunner:
+    """The device-side bootstrap of B sequences (see ``MultiseqInitRunner``);
+    with a ``group``, each rank's B/D sequences (see the module docstring),
+    their draws those of their place in the whole batch."""
     return MultiseqInitRunner(cam_cfg, orb_cfg, matcher_cfg, tracker_cfg, init_cfg,
-                              point_capacity, device)
+                              point_capacity, device, group)
 
 
 def make_multiseq_mapping_runner(cam_cfg: CameraConfig, orb_cfg: OrbConfig,
                                  matcher_cfg: MatcherConfig, tracker_cfg: TrackerConfig,
                                  tri_cap: int = 128, obs_cap: int = 512,
-                                 device: torch.device | str = DEFAULT_DEVICE
-                                 ) -> DeviceSequenceLoop:
+                                 device: torch.device | str = DEFAULT_DEVICE,
+                                 group: Optional[torch.distributed.ProcessGroup] = None):
     """B sequences with growing maps (``multiseq.py:373-420``): the
     device-side mapping loop with the closed-form solve, called with a
-    leading [B].
+    leading [B]. With a ``group``, each rank runs its B/D sequences (a
+    rank's one sequence is still a batch of one) and the final maps and
+    outputs are all-gathered.
 
     ``run(images [B,T,H,W], m0: SlamMap with a leading [B] on every
     field, R0 [B,3,3], t0 [B,3], K [3,3], frame_id0, kf_count0,
@@ -366,5 +405,8 @@ def make_multiseq_mapping_runner(cam_cfg: CameraConfig, orb_cfg: OrbConfig,
     "held / keyframe due" flags a frame, and the recovery tier and the
     keyframe insert only for the sequences that need them, on their rows
     of the map (see ``DeviceSequenceLoop``)."""
-    return DeviceSequenceLoop(cam_cfg, orb_cfg, matcher_cfg, tracker_cfg, tri_cap, obs_cap,
+    loop = DeviceSequenceLoop(cam_cfg, orb_cfg, matcher_cfg, tracker_cfg, tri_cap, obs_cap,
                               batched_solve=True, device=device)
+    if group is None:
+        return loop
+    return _dp(group, loop, shared=(4,))

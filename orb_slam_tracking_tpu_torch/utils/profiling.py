@@ -3,7 +3,9 @@
 - ``Stopwatch``: accumulating named wall-clock sections, mean and total;
 - ``device_trace``: ``torch.profiler`` over the CPU and, where there is a
   card, CUDA activities, written as a Chrome trace (per-kernel device time);
-- ``MetricsLog``: append-only per-frame metrics with JSONL export.
+- ``MetricsLog``: append-only per-frame metrics with JSONL export;
+- ``card``: the card's name and power limit, as ``nvidia-smi`` gives them,
+  for the record of every time taken on it.
 """
 
 from __future__ import annotations
@@ -11,11 +13,27 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, List
 
-__all__ = ["Stopwatch", "device_trace", "MetricsLog"]
+__all__ = ["Stopwatch", "device_trace", "MetricsLog", "card"]
+
+
+def card(device) -> str:
+    """``"name, power limit"`` of the card of ``device`` (``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader``), or ``"cpu"``
+    for the CPU, which has no device metric."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          f"--id={device.index or 0}"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip()
 
 
 class Stopwatch:

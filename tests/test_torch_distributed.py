@@ -15,6 +15,8 @@ B single runs: exact on the CPU).
 import functools
 import os
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -41,7 +43,7 @@ def test_initialize_from_env_is_a_noop_for_one_process(monkeypatch):
         monkeypatch.delenv(k, raising=False)
     assert distributed.initialize_from_env(backend="gloo") is False
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
-    monkeypatch.setenv("MASTER_PORT", str(distributed.free_port()))
+    monkeypatch.setenv("MASTER_PORT", "29500")  # one process: nothing binds it
     monkeypatch.setenv("WORLD_SIZE", "1")
     monkeypatch.setenv("RANK", "0")
     assert distributed.initialize_from_env(backend="gloo") is False
@@ -159,13 +161,19 @@ def test_dp_batch_must_divide_the_ranks():
 
 def test_dryrun_multichip_completes():
     """The counterpart of ``__graft_entry__.dryrun_multichip`` on 2 gloo
-    CPU ranks: every mode runs, and the replicated results agree."""
+    CPU ranks: every mode runs (the init and mapping runners across the
+    ranks too), and the replicated and gathered results agree."""
     ranks = dryrun_multichip(2, "gloo", "cpu")
     assert len(ranks) == 2
     for r in ranks:
         assert r["dp_n_kps"].shape == (2,) and r["tp_matches"].shape == (16,)
         assert r["pp_R"].shape == (3, 3, 3) and np.isfinite(r["pp_R"]).all()
         assert np.isfinite(r["ba_cost"])
+        assert r["init_state"].shape == (2, 3) and r["init_R"].shape == (2, 3, 3, 3)
+        assert np.isin(r["init_state"], (0, 1, 2)).all() and np.isfinite(r["init_R"]).all()
+        assert r["map_R"].shape == (2, 2, 3, 3) and np.isfinite(r["map_R"]).all()
+        assert r["map_n_kps"].shape == r["map_inserted_kf"].shape == (2, 2)
+        assert r["map_inserted_kf"].dtype == bool and r["map_pt_valid"].shape == (2, 16)
     for k in ranks[0]:
         np.testing.assert_array_equal(ranks[0][k], ranks[1][k], k)
 
@@ -182,6 +190,56 @@ def test_spawn_reports_a_failing_rank():
     waiting in a collective is stopped."""
     with pytest.raises(RuntimeError, match="rank one fails"):
         distributed.spawn(_failing_worker, 2, "gloo", "cpu", timeout=120)
+
+
+def _aborted_first_worker(mesh):
+    """Rank 1 tears the group down under rank 0's barrier and fails a
+    second later, so rank 0's abort is the first report the parent gets."""
+    if mesh.rank == 1:
+        torch.distributed.destroy_process_group()
+        time.sleep(1.0)
+        raise KeyError("rank one fails")
+    torch.distributed.barrier()
+    return mesh.rank
+
+
+def test_spawn_names_the_root_cause_when_the_abort_arrives_first():
+    """The rank whose collective was torn down reports first; ``spawn``
+    still waits for the failing rank's report and puts it first, with the
+    aborted rank's traceback after it."""
+    with pytest.raises(RuntimeError, match="rank one fails") as err:
+        distributed.spawn(_aborted_first_worker, 2, "gloo", "cpu", timeout=120)
+    msg = str(err.value)
+    assert msg.startswith("rank 1 failed:"), msg[:200]
+    assert "rank 0 failed (a collective torn down by a failing peer)" in msg
+
+
+def _tag_worker(mesh, tag):
+    t = torch.tensor([tag], dtype=torch.int64)
+    torch.distributed.all_reduce(t)
+    return int(t) // mesh.size
+
+
+def test_spawns_at_once_keep_their_own_groups():
+    """Four ``spawn`` calls at once, as parallel test workers make them:
+    each group forms on its own store, and each all-reduce sums its own
+    ranks' tags only."""
+    got, errors = {}, []
+
+    def one(tag):
+        try:
+            got[tag] = distributed.spawn(_tag_worker, 2, "gloo", "cpu", (tag,), timeout=120)
+        except Exception as e:  # raised in the test thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(tag,)) for tag in (3, 5, 7, 11)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=180)
+        assert not th.is_alive()
+    assert not errors, errors
+    assert got == {tag: [tag, tag] for tag in (3, 5, 7, 11)}
 
 
 def test_spawn_env_is_local(monkeypatch):

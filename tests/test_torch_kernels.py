@@ -243,8 +243,8 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port loads without jax and without the JAX
     package, the two-view initialization slice's, the device loop's, the
-    BoW and loop-closing slice's, the file IO and tools and the
-    multi-device modes' among them."""
+    BoW and loop-closing slice's, the file IO and tools, the multi-device
+    modes' and the measurement tools and studies among them."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import orb_slam_tracking_tpu_torch as p\n"
@@ -261,7 +261,9 @@ def test_port_imports_no_jax():
         "    'tools.eval_tum', 'tools.make_synthetic_tum', 'tools.demo_initialization',\n"
         "    'tools.demo_orb_extractor', 'tools.demo_tracking', 'parallel.distributed',\n"
         "    'parallel.matcher_sharded', 'parallel.ba_sharded', 'parallel.pipeline',\n"
-        "    'parallel.multiseq', 'tools.demo_multiseq')}\n"
+        "    'parallel.multiseq', 'tools.demo_multiseq', 'tools.ba_bench',\n"
+        "    'tools.scaling_efficiency', 'tools.bow_match_experiment',\n"
+        "    'tools.vocab_recall_study')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'orb_slam_tracking_tpu'))\n"
