@@ -1,0 +1,15 @@
+"""Share of its roofline that the ``hamming_gated_min`` kernel reaches in the
+profiled call, in %: the least time the card could take (the larger of
+its bytes over 3.35 TB/s and its operations over their peak, from the
+cell's shapes, ``slambench/peaks.py``) over the kernel's mean traced
+time a launch."""
+
+from slambench.peaks import bound_s
+
+
+def read(r):
+    seconds, launches = r["kernels"].get("hamming", (0.0, 0))
+    work = r["work"].get("hamming")
+    if not launches or not work or seconds <= 0.0:
+        return None
+    return 100.0 * bound_s(*work) / (seconds / launches)
