@@ -26,6 +26,16 @@ mode takes off the TPU:
   convergence, which gives the same result without a host sync.
 
 Nothing here reads a value on the host.
+
+Spans (``utils/profiling``): ``ba.bundle_adjust`` around a solve, from
+``lm_solver``'s set-up to ``finish``; in each LM step ``ba.linearize``
+(residuals, Jacobians and the segment sums up to ``W``), ``ba.schur`` (the
+damping, ``V^-1`` and the reduced camera system with its right-hand side)
+and ``ba.factor`` (the Cholesky solve, the points' back-substitution, the
+update's cost and the gate). Counters, in ``ba.schur``:
+``ba.schur_blocks_computed``, the 6x6 blocks the assembly computes, and
+``ba.schur_blocks_nonzero``, those that are structurally nonzero
+(``schur_blocks_nonzero``, counted only when the counters are read).
 """
 
 from __future__ import annotations
@@ -35,11 +45,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..geometry import se3
+from ..utils import profiling
 from .lm import huber_weight, inv3x3, nielsen_update
 from .segment import segment_sum, segments
 
 __all__ = ["BAResult", "bundle_adjust", "lm_solver", "normal_blocks", "robust_rho",
-           "obs_residuals"]
+           "obs_residuals", "schur_blocks_nonzero"]
 
 _CHI2_MONO = 5.991
 
@@ -116,12 +127,33 @@ def bundle_adjust(
     that small, ten rejections in a row, or a damping past 1e8 ends the
     solve.
     """
-    carry, step, finish = lm_solver(
-        kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, obs_inv_sigma2, obs_valid,
-        kf_fixed, pt_valid, K, max_free_cams, early_stop_rel)
-    for _ in range(iterations):
-        carry = step(carry)
-    return finish(carry)
+    with profiling.span("ba.bundle_adjust"):
+        carry, step, finish = lm_solver(
+            kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, obs_inv_sigma2, obs_valid,
+            kf_fixed, pt_valid, K, max_free_cams, early_stop_rel)
+        for _ in range(iterations):
+            carry = step(carry)
+        return finish(carry)
+
+
+def schur_blocks_nonzero(obs_cell: torch.Tensor, obs_valid: torch.Tensor, nF: int) -> int:
+    """The structurally nonzero 6x6 blocks of the reduced camera system of
+    ``nF`` free cameras: the ordered pairs of in-window cameras (a camera
+    with itself too) that have a valid observation of one point.
+    ``obs_cell`` is ``lm_solver``'s ``point * (nF + 1) + free rank`` (rank
+    ``nF``: a fixed or out-of-window camera)."""
+    cell = torch.unique(obs_cell[obs_valid & (obs_cell % (nF + 1) < nF)])
+    if cell.numel() == 0:
+        return 0
+    pt, cam = cell // (nF + 1), cell % (nF + 1)
+    # the sorted cells of one point are a run: pair each with every cell of its run
+    n = torch.unique_consecutive(pt, return_counts=True)[1]
+    first = torch.cumsum(n, 0) - n
+    deg, run0 = n.repeat_interleave(n), first.repeat_interleave(n)
+    i = torch.arange(cell.numel(), device=cell.device).repeat_interleave(deg)
+    j = run0[i] + torch.arange(i.numel(), device=cell.device) - (
+        torch.cumsum(deg, 0) - deg).repeat_interleave(deg)
+    return int(torch.unique(cam[i] * nF + cam[j]).numel())
 
 
 def lm_solver(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, obs_inv_sigma2, obs_valid,
@@ -159,73 +191,80 @@ def lm_solver(kf_R, kf_t, pts, obs_kf, obs_pt, obs_uv, obs_inv_sigma2, obs_valid
         r, _, _, _ = obs_residuals(R, t, X, okf, opt, obs_uv, fx, fy, cx, cy)
         return robust_rho(r, w_info).sum()
 
-    def lm_iter(R, t, X, lam, nu, cost, done, rejects):
-        r, Jc, Jp, _ = obs_residuals(R, t, X, okf, opt, obs_uv, fx, fy, cx, cy)
-        bU, bV, bgc, bgp, bW = normal_blocks(r, Jc, Jp, w_info)
-        U = segment_sum(bU, seg_k)
-        V = segment_sum(bV, seg_p)
-        g_c = segment_sum(bgc, seg_k)
-        g_p = segment_sum(bgp, seg_p)
-        # coupling over the compact free-camera axis, +1 dump slot
-        Wb = segment_sum(bW, seg_w).view(nP, nF + 1, 6, 3)[:, :nF]
-
-        # damping, multiplicative on the block diagonals
-        Ud = U + lam * eye6 * torch.diagonal(U, dim1=-2, dim2=-1)[:, None, :]
-        Vd = V + lam * eye3 * torch.diagonal(V, dim1=-2, dim2=-1)[:, None, :]
-        Vd = torch.where(pt_valid[:, None, None], Vd, eye3)  # invalid points stay invertible
-        Vinv = inv3x3(Vd.double()).to(fdt)
-
-        Ud_free = segment_sum(Ud, seg_f)[:nF]
-        g_c_free = segment_sum(torch.where(in_window[:, None], g_c, 0.0), seg_f)[:nF]
-        Y = (Wb[..., 0:1] * Vinv[:, None, None, 0, :]
-             + Wb[..., 1:2] * Vinv[:, None, None, 1, :]
-             + Wb[..., 2:3] * Vinv[:, None, None, 2, :])        # [P, nF, 6, 3]
-        S = torch.einsum("kij,km->kimj", Ud_free, eyeF)
-        S = S - torch.einsum("pkil,pmjl->kimj", Y, Wb)
-        rhs = -g_c_free + torch.einsum("pkil,pl->ki", Y, g_p)  # [nF, 6]
-        # empty compact slots (fewer free cameras than nF): identity blocks
-        S = S * omask[:, None, None, None] * omask[None, None, :, None] + empty_diag
-        rhs = rhs * omask[:, None]
-
-        Sm = S.reshape(nF * 6, nF * 6) + 1e-8 * torch.eye(nF * 6, dtype=fdt, device=dev)
-        L, info = torch.linalg.cholesky_ex(Sm)
-        dxc_free = torch.cholesky_solve(rhs.reshape(-1, 1), L).reshape(nF, 6)
-        dxc_free = torch.where(info == 0, dxc_free, float("nan"))
-        dxc = torch.where(in_window[:, None], dxc_free[rank_safe], 0.0)
-        gsum = g_p + torch.einsum("pkil,ki->pl", Wb, dxc_free)
-        dxp = -(Vinv[:, :, 0] * gsum[:, 0:1] + Vinv[:, :, 1] * gsum[:, 1:2]
-                + Vinv[:, :, 2] * gsum[:, 2:3])
-        dxp = torch.where(pt_valid[:, None], dxp, 0.0)
-
-        dR, dt = se3.se3_exp(dxc)
-        R_new = dR @ R
-        t_new = (dR @ t[..., None])[..., 0] + dt
-        X_new = X + dxp
-        new_cost = robust_cost(R_new, t_new, X_new)
-        # predicted decrease 0.5 * dx^T (lam D dx - g) over both blocks
-        predc = 0.5 * (dxc * (lam * torch.diagonal(U, dim1=-2, dim2=-1) * dxc - g_c)).sum()
-        predp = 0.5 * (dxp * (lam * torch.diagonal(V, dim1=-2, dim2=-1) * dxp - g_p)).sum()
-        pred = (predc + predp).abs()
-        rho = (cost - new_cost) / pred.clamp_min(1e-9)
-        lam_new, nu_new = nielsen_update(lam, nu, rho)
-        good = new_cost < cost
-        rejects = torch.where(good, 0, rejects + 1)
-        if early_stop_rel > 0.0:
-            rel = early_stop_rel * cost.abs()
-            converged_acc = good & ((cost - new_cost) <= rel)
-            converged_rej = ~good & (pred <= rel)
-            done = done | converged_acc | converged_rej | (rejects >= 10) | (lam_new > 1e8)
-        return (torch.where(good, R_new, R), torch.where(good, t_new, t),
-                torch.where(good, X_new, X), lam_new, nu_new,
-                torch.where(good, new_cost, cost), done, rejects)
+    def fill():
+        return schur_blocks_nonzero(obs_cell, obs_valid, nF)
 
     def step(carry):
-        stepped = lm_iter(*carry)
-        if early_stop_rel > 0.0:
-            # a step after convergence is a no-op: keep the carry
-            done = carry[6]
-            stepped = tuple(torch.where(done, old, new) for old, new in zip(carry, stepped))
-        return stepped
+        R, t, X, lam, nu, cost, done, rejects = carry
+        with profiling.span("ba.linearize"):
+            r, Jc, Jp, _ = obs_residuals(R, t, X, okf, opt, obs_uv, fx, fy, cx, cy)
+            bU, bV, bgc, bgp, bW = normal_blocks(r, Jc, Jp, w_info)
+            U = segment_sum(bU, seg_k)
+            V = segment_sum(bV, seg_p)
+            g_c = segment_sum(bgc, seg_k)
+            g_p = segment_sum(bgp, seg_p)
+            # coupling over the compact free-camera axis, +1 dump slot
+            Wb = segment_sum(bW, seg_w).view(nP, nF + 1, 6, 3)[:, :nF]
+
+        with profiling.span("ba.schur"):
+            # damping, multiplicative on the block diagonals
+            Ud = U + lam * eye6 * torch.diagonal(U, dim1=-2, dim2=-1)[:, None, :]
+            Vd = V + lam * eye3 * torch.diagonal(V, dim1=-2, dim2=-1)[:, None, :]
+            Vd = torch.where(pt_valid[:, None, None], Vd, eye3)  # invalid points stay invertible
+            Vinv = inv3x3(Vd.double()).to(fdt)
+
+            Ud_free = segment_sum(Ud, seg_f)[:nF]
+            g_c_free = segment_sum(torch.where(in_window[:, None], g_c, 0.0), seg_f)[:nF]
+            Y = (Wb[..., 0:1] * Vinv[:, None, None, 0, :]
+                 + Wb[..., 1:2] * Vinv[:, None, None, 1, :]
+                 + Wb[..., 2:3] * Vinv[:, None, None, 2, :])        # [P, nF, 6, 3]
+            S = torch.einsum("kij,km->kimj", Ud_free, eyeF)
+            S = S - torch.einsum("pkil,pmjl->kimj", Y, Wb)
+            rhs = -g_c_free + torch.einsum("pkil,pl->ki", Y, g_p)  # [nF, 6]
+            # empty compact slots (fewer free cameras than nF): identity blocks
+            S = S * omask[:, None, None, None] * omask[None, None, :, None] + empty_diag
+            rhs = rhs * omask[:, None]
+            profiling.count("ba.schur_blocks_computed", nF * nF)
+            profiling.count("ba.schur_blocks_nonzero", fill)
+
+        with profiling.span("ba.factor"):
+            Sm = S.reshape(nF * 6, nF * 6) + 1e-8 * torch.eye(nF * 6, dtype=fdt, device=dev)
+            L, info = torch.linalg.cholesky_ex(Sm)
+            dxc_free = torch.cholesky_solve(rhs.reshape(-1, 1), L).reshape(nF, 6)
+            dxc_free = torch.where(info == 0, dxc_free, float("nan"))
+            dxc = torch.where(in_window[:, None], dxc_free[rank_safe], 0.0)
+            gsum = g_p + torch.einsum("pkil,ki->pl", Wb, dxc_free)
+            dxp = -(Vinv[:, :, 0] * gsum[:, 0:1] + Vinv[:, :, 1] * gsum[:, 1:2]
+                    + Vinv[:, :, 2] * gsum[:, 2:3])
+            dxp = torch.where(pt_valid[:, None], dxp, 0.0)
+
+            dR, dt = se3.se3_exp(dxc)
+            R_new = dR @ R
+            t_new = (dR @ t[..., None])[..., 0] + dt
+            X_new = X + dxp
+            new_cost = robust_cost(R_new, t_new, X_new)
+            # predicted decrease 0.5 * dx^T (lam D dx - g) over both blocks
+            predc = 0.5 * (dxc * (lam * torch.diagonal(U, dim1=-2, dim2=-1) * dxc - g_c)).sum()
+            predp = 0.5 * (dxp * (lam * torch.diagonal(V, dim1=-2, dim2=-1) * dxp - g_p)).sum()
+            pred = (predc + predp).abs()
+            rho = (cost - new_cost) / pred.clamp_min(1e-9)
+            lam_new, nu_new = nielsen_update(lam, nu, rho)
+            good = new_cost < cost
+            rejects_new = torch.where(good, 0, rejects + 1)
+            done_new = done
+            if early_stop_rel > 0.0:
+                rel = early_stop_rel * cost.abs()
+                converged_acc = good & ((cost - new_cost) <= rel)
+                converged_rej = ~good & (pred <= rel)
+                done_new = (done | converged_acc | converged_rej | (rejects_new >= 10)
+                            | (lam_new > 1e8))
+            stepped = (torch.where(good, R_new, R), torch.where(good, t_new, t),
+                       torch.where(good, X_new, X), lam_new, nu_new,
+                       torch.where(good, new_cost, cost), done_new, rejects_new)
+            if early_stop_rel > 0.0:
+                # a step after convergence is a no-op: keep the carry
+                stepped = tuple(torch.where(done, old, new) for old, new in zip(carry, stepped))
+            return stepped
 
     def finish(carry):
         R, t, X, _, _, cost, _, _ = carry

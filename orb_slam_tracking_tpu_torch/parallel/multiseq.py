@@ -62,6 +62,7 @@ from ..optim.pose_opt import optimize_pose
 from ..slam.device_mapping import DeviceSequenceLoop, _index_batch, _matvec
 from ..slam.fused_step import TrackingStep
 from ..slam.map import SlamMap
+from ..utils import profiling
 from .distributed import all_gather, group_rank_size
 
 __all__ = ["MultiseqResult", "make_multiseq_step", "make_multiseq_sequence_runner",
@@ -184,29 +185,33 @@ def make_multiseq_sequence_runner(cam_cfg: CameraConfig, orb_cfg: OrbConfig,
     frame on (the JAX carry's ``have_vel``, known on the host here). Nothing
     in a run reads the device from the host; ``run.step`` is the batched
     ``TrackingStep``. With a ``group``, each rank runs its B/D sequences
-    (see the module docstring)."""
+    (see the module docstring). Spans (``utils/profiling``): ``runner.run``
+    around the call, the root of its ``runner.frame`` spans, one a frame
+    (the carry and the step, whose own spans nest in it)."""
     step = TrackingStep(cam_cfg, orb_cfg, matcher_cfg, tracker_cfg, batched_solve=True,
                         device=device)
 
     @functools.partial(_dp, group)
     def run(images, map_pts, map_desc, map_valid, R0, t0, K) -> Dict[str, torch.Tensor]:
-        zn, zd, _ = _no_stats(map_pts)
-        R, t = R0, t0
-        vel_R = vel_t = None
-        outs = []
-        for f in range(images.shape[1]):
-            if vel_R is None:
-                R_pred, t_pred = R, t
-            else:
-                R_pred, t_pred = vel_R @ R, _matvec(vel_R, t) + vel_t
-            r = step(images[:, f], map_pts, map_desc, map_valid, zn, zd, zd,
-                     R_pred, t_pred, R, t, K)
-            vel_R = r.R @ R.transpose(-1, -2)
-            vel_t = r.t - _matvec(vel_R, t)
-            R, t = r.R, r.t
-            outs.append((r.R, r.t, r.n_inliers, r.n_matches2))
-        Rs, ts, n_inl, n_m = (torch.stack(x, dim=1) for x in zip(*outs))
-        return {"R": Rs, "t": ts, "n_inliers": n_inl, "n_matches": n_m}
+        with profiling.span("runner.run"):
+            zn, zd, _ = _no_stats(map_pts)
+            R, t = R0, t0
+            vel_R = vel_t = None
+            outs = []
+            for f in range(images.shape[1]):
+                with profiling.span("runner.frame"):
+                    if vel_R is None:
+                        R_pred, t_pred = R, t
+                    else:
+                        R_pred, t_pred = vel_R @ R, _matvec(vel_R, t) + vel_t
+                    r = step(images[:, f], map_pts, map_desc, map_valid, zn, zd, zd,
+                             R_pred, t_pred, R, t, K)
+                    vel_R = r.R @ R.transpose(-1, -2)
+                    vel_t = r.t - _matvec(vel_R, t)
+                    R, t = r.R, r.t
+                    outs.append((r.R, r.t, r.n_inliers, r.n_matches2))
+            Rs, ts, n_inl, n_m = (torch.stack(x, dim=1) for x in zip(*outs))
+            return {"R": Rs, "t": ts, "n_inliers": n_inl, "n_matches": n_m}
 
     run.step = step
     return run

@@ -18,6 +18,12 @@ carries a leading [B] (``K`` shared): the multi-sequence runners' step
 (``parallel/multiseq.py``, the JAX package's ``vmap`` of this step). It
 still launches 1 FAST, 1 orient-and-describe and 2 Hamming kernels a
 frame, whatever B is.
+
+Its spans (``utils/profiling``): ``step.extract`` around the extraction,
+``step.match`` around each projection match, with the counters
+``step.visible_slots`` (the match's ``n_visible``) and
+``step.projected_slots`` (the map slots it projected), and ``step.lm``
+around each pose LM.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from ..ops.extractor import ExtractorConstants, orb_extract
 from ..ops.proj_matcher import search_by_projection
 from ..optim.pose_opt import optimize_pose
 from ..types import Keypoints
+from ..utils import profiling
 
 __all__ = ["FusedStepResult", "TrackingStep"]
 
@@ -90,8 +97,9 @@ class TrackingStep(nn.Module):
     def extract(self, image):
         """The step's first half: (keypoints, their undistorted pixels) of
         ``image`` (the pipeline's stage 0, ``parallel/pipeline.py``)."""
-        kps = orb_extract(image, self.orb_cfg, self.consts)
-        return kps, camera.undistort_pixels(self.cam_cfg, kps.xy)
+        with profiling.span("step.extract"):
+            kps = orb_extract(image, self.orb_cfg, self.consts)
+            return kps, camera.undistort_pixels(self.cam_cfg, kps.xy)
 
     def track(self, kps: Keypoints, xy_un, map_pts, map_desc, map_valid, map_normal,
               map_dmin, map_dmax, R_pred, t_pred, R0, t0, K) -> FusedStepResult:
@@ -103,20 +111,25 @@ class TrackingStep(nn.Module):
         scale = ocfg.scale_factor
 
         def match(R, t, rad):
-            return search_by_projection(
-                map_pts, map_desc, map_valid, R, t, K,
-                kps.desc, xy_un, kps.valid, rad, self.matcher_cfg,
-                cam.width, cam.height, kp_octave=kps.octave,
-                scale_factor=scale, pt_normal=map_normal, pt_dmin=map_dmin,
-                pt_dmax=map_dmax, n_levels=ocfg.n_levels)
+            with profiling.span("step.match"):
+                pm = search_by_projection(
+                    map_pts, map_desc, map_valid, R, t, K,
+                    kps.desc, xy_un, kps.valid, rad, self.matcher_cfg,
+                    cam.width, cam.height, kp_octave=kps.octave,
+                    scale_factor=scale, pt_normal=map_normal, pt_dmin=map_dmin,
+                    pt_dmax=map_dmax, n_levels=ocfg.n_levels)
+                profiling.count("step.visible_slots", pm.n_visible)
+                profiling.count("step.projected_slots", map_valid.numel())
+                return pm
 
         def optimize(R, t, pm):
-            safe = pm.kp_for_point.clamp_min(0).to(torch.int64)
-            inv_s2 = 1.0 / scale ** (2.0 * kps.octave.gather(-1, safe).to(torch.float32))
-            return optimize_pose(
-                R, t, map_pts, torch.take_along_dim(xy_un, safe[..., None], dim=-2), inv_s2,
-                pm.kp_for_point >= 0, K, rounds=tcfg.pose_opt_rounds,
-                iters_per_round=tcfg.pose_opt_iters, batched_solve=self.batched_solve)
+            with profiling.span("step.lm"):
+                safe = pm.kp_for_point.clamp_min(0).to(torch.int64)
+                inv_s2 = 1.0 / scale ** (2.0 * kps.octave.gather(-1, safe).to(torch.float32))
+                return optimize_pose(
+                    R, t, map_pts, torch.take_along_dim(xy_un, safe[..., None], dim=-2), inv_s2,
+                    pm.kp_for_point >= 0, K, rounds=tcfg.pose_opt_rounds,
+                    iters_per_round=tcfg.pose_opt_iters, batched_solve=self.batched_solve)
 
         pm1 = match(R_pred, t_pred, self.radius)
         res1 = optimize(R0, t0, pm1)

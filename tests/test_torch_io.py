@@ -303,26 +303,20 @@ def test_make_synthetic_tum_matches_jax_script(monkeypatch, tmp_path, mode, extr
 
 
 def test_profiling_matches_jax(tmp_path):
-    from orb_slam_tracking_tpu.utils import profiling as jx_profiling
     from orb_slam_tracking_tpu_torch.utils import profiling
 
-    rows = [{"frame": i, "ms": 10.0 + i, "state": "WORKING", "n": i % 3} for i in range(5)]
-    logs = []
-    for mod in (profiling, jx_profiling):
-        log = mod.MetricsLog()
-        for row in rows:
-            log.append(row)
-        log.dump_jsonl(str(tmp_path / f"{mod.__name__}.jsonl"))
-        logs.append((log.summary(), (tmp_path / f"{mod.__name__}.jsonl").read_text()))
-    assert logs[0] == logs[1]
-    sw = profiling.Stopwatch()
-    for _ in range(3):
-        with sw.section("a"):
-            pass
-    assert sw.report()["a"]["count"] == 3 and "a" in str(sw)
+    profiling.clear()
+    with profiling.tracing():
+        for _ in range(3):
+            with profiling.span("a"):
+                pass
+    got = profiling.spans()
+    assert [s.name for s in got] == ["a"] * 3 and all(s.host_end >= s.host_start for s in got)
+    profiling.clear()
     with profiling.device_trace(str(tmp_path / "trace")) as prof:
         np.ones(3).sum()
     assert prof is not None and (tmp_path / "trace" / "trace.json").is_file()
+    assert (tmp_path / "trace" / "idle_gaps.json").is_file()
 
 
 def test_viz_matches_jax(tmp_path):
