@@ -31,9 +31,15 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
 _LIB_NAME = "libosltt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source besides NVCC_FLAGS: the pose LM rounds every product
+# and sum apart, as its plain version's PyTorch ops do (with products
+# contracted into FMAs its poses parted from the plain arithmetic's about
+# eight times further, PERF.md)
+SOURCE_FLAGS = {"pose_lm.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every kernel entry point: (argtypes, restype int = the
 # cudaGetLastError() after the launch)
 _SIGNATURES = {
@@ -44,6 +50,7 @@ _SIGNATURES = {
     "osltt_moments_at": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     "osltt_orient_describe": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                               _I, _I, _P),
+    "osltt_pose_lm": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I) + (_P,) * 7,
 }
 
 
@@ -56,6 +63,7 @@ def _source_hash() -> str:
     h.update(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(p.name, ())).encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
@@ -91,7 +99,8 @@ def _build(out_dir: Path) -> Path:
         objs, procs = [], []
         for src in (p for p in _sources() if p.suffix == ".cu"):
             obj = out_dir / f".{src.stem}.{tag}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", "-o", str(obj),
+                   str(src)]
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
             objs.append(obj)

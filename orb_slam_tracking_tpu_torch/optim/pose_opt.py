@@ -13,6 +13,14 @@ A leading batch axis on the pose and the observations (``R0 [B, 3, 3]``,
 its own damping schedule, as the JAX function under ``vmap``: the
 multi-sequence runners' form. Every reduction runs over the observation
 axis only, so a batched pose sees the same sums as its unbatched call.
+
+``optimize_pose`` runs the plain version, ``optimize_pose_reference``, on
+CPU tensors; on CUDA tensors it launches the kernel ``csrc/pose_lm.cu``,
+which runs the whole call, every round and iteration, over the valid rows
+only, one thread block a pose, in one launch (it replaces no TPU kernel:
+the JAX package's LM is plain XLA). The kernel's sums run in another order,
+so its poses agree with the plain version's to float32 rounding, not bit
+for bit. ``optimize_pose.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -21,10 +29,11 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..geometry import se3
 from .lm import huber_weight, nielsen_update, solve_damped
 
-__all__ = ["PoseOptResult", "optimize_pose"]
+__all__ = ["PoseOptResult", "optimize_pose", "optimize_pose_reference"]
 
 _CHI2_TH = 5.991  # 95% for 2 dof
 
@@ -110,23 +119,15 @@ def _lm_rounds(R, t, r, J, z, pts, uv, inv_sigma2, active, fx, fy, cx, cy,
     return R, t, cost, r, J, z
 
 
-def optimize_pose(R0: torch.Tensor, t0: torch.Tensor, pts: torch.Tensor,
-                  uv: torch.Tensor, inv_sigma2: torch.Tensor,
-                  valid: torch.Tensor, K: torch.Tensor, rounds: int = 4,
-                  iters_per_round: int = 10,
-                  coarse_delta_scale: float = 25.0,
-                  batched_solve: bool = False) -> PoseOptResult:
-    """Optimise a world-to-camera pose against known 3-D points.
-
-    R0, t0: initial pose; pts [N, 3] world points; uv [N, 2] observed
-    undistorted pixels; inv_sigma2 [N] per-observation information; valid
-    [N] mask; K [3, 3]. The first round runs with the Huber threshold
-    widened by ``coarse_delta_scale``; rounds 3+ drop the robust kernel.
-    A leading [B] on everything but K optimises B poses at once.
-    ``batched_solve`` takes the 6x6 steps by the closed form ``solve_spd6``
-    in place of LU (the JAX package's switch; its multi-sequence runners
-    set it, batched or not).
-    """
+def optimize_pose_reference(R0: torch.Tensor, t0: torch.Tensor, pts: torch.Tensor,
+                            uv: torch.Tensor, inv_sigma2: torch.Tensor,
+                            valid: torch.Tensor, K: torch.Tensor, rounds: int = 4,
+                            iters_per_round: int = 10,
+                            coarse_delta_scale: float = 25.0,
+                            batched_solve: bool = False) -> PoseOptResult:
+    """The plain version of ``optimize_pose`` (the same arguments and
+    result): every LM iteration a chain of PyTorch ops over all N rows,
+    masked, on any device."""
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     R, t = R0, t0
     inlier = valid
@@ -144,3 +145,68 @@ def optimize_pose(R0: torch.Tensor, t0: torch.Tensor, pts: torch.Tensor,
         n_inliers=inlier.sum(dim=-1, dtype=torch.int32),
         chi2=torch.where(inlier, chi2, 0.0).sum(dim=-1),
     )
+
+
+def optimize_pose(R0: torch.Tensor, t0: torch.Tensor, pts: torch.Tensor,
+                  uv: torch.Tensor, inv_sigma2: torch.Tensor,
+                  valid: torch.Tensor, K: torch.Tensor, rounds: int = 4,
+                  iters_per_round: int = 10,
+                  coarse_delta_scale: float = 25.0,
+                  batched_solve: bool = False) -> PoseOptResult:
+    """Optimise a world-to-camera pose against known 3-D points.
+
+    R0, t0: initial pose; pts [N, 3] world points; uv [N, 2] observed
+    undistorted pixels; inv_sigma2 [N] per-observation information; valid
+    [N] mask; K [3, 3]. The first round runs with the Huber threshold
+    widened by ``coarse_delta_scale``; rounds 3+ drop the robust kernel.
+    A leading [B] on everything but K (and optionally pts, then shared)
+    optimises B poses at once. ``batched_solve`` takes the 6x6 steps by the
+    closed form ``solve_spd6`` in place of LU (the JAX package's switch;
+    its multi-sequence runners set it, batched or not).
+
+    CPU tensors run ``optimize_pose_reference``; CUDA tensors launch the
+    kernel, float32 throughout, one launch a call.
+    """
+    args = (R0, t0, pts, uv, inv_sigma2, valid, K)
+    if all(x.device.type == "cpu" for x in args):
+        return optimize_pose_reference(*args, rounds=rounds, iters_per_round=iters_per_round,
+                                       coarse_delta_scale=coarse_delta_scale,
+                                       batched_solve=batched_solve)
+    name = "optimize_pose"
+    lead = tuple(R0.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"{name}: expected R0 [3, 3] or [B, 3, 3], got {tuple(R0.shape)}")
+    n = uv.shape[-2]
+    R0, t0, pts, uv, inv_sigma2, valid, K = (x.contiguous() for x in args)
+    specs = ((R0, torch.float32, lead + (3, 3)), (t0, torch.float32, lead + (3,)),
+             (pts, torch.float32, (lead if pts.dim() == 3 else ()) + (n, 3)),
+             (uv, torch.float32, lead + (n, 2)), (inv_sigma2, torch.float32, lead + (n,)),
+             (valid, torch.bool, lead + (n,)), (K, torch.float32, (3, 3)))
+    for x, dtype, shape in specs:
+        kernels.require_cuda(name, x, dtype, len(shape))
+        if tuple(x.shape) != shape or x.device != R0.device:
+            raise ValueError(f"{name}: expected shape {shape} on {R0.device}, got "
+                             f"{tuple(x.shape)} on {x.device}")
+    batch = lead[0] if lead else 1
+    dev = R0.device
+    R = torch.empty(lead + (3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
+    inlier = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
+    n_inliers = torch.empty(lead, dtype=torch.int32, device=dev)
+    chi2 = torch.empty(lead, dtype=torch.float32, device=dev)
+    if batch == 0:
+        return PoseOptResult(R=R, t=t, inlier=inlier, n_inliers=n_inliers, chi2=chi2)
+    rows = torch.empty((batch, n), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kernels.library().osltt_pose_lm(
+            R0.data_ptr(), t0.data_ptr(), pts.data_ptr(), int(pts.dim() == 3),
+            uv.data_ptr(), inv_sigma2.data_ptr(), valid.data_ptr(), K.data_ptr(), batch, n,
+            rounds, iters_per_round, _CHI2_TH * coarse_delta_scale, int(batched_solve),
+            rows.data_ptr(), R.data_ptr(), t.data_ptr(), inlier.data_ptr(),
+            n_inliers.data_ptr(), chi2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(name, rc)
+    optimize_pose.launches += 1
+    return PoseOptResult(R=R, t=t, inlier=inlier, n_inliers=n_inliers, chi2=chi2)
+
+
+optimize_pose.launches = 0

@@ -10,20 +10,22 @@ Per frame:
 (resize matrices, Gaussian taps, BRIEF pattern), built once. The step has
 fixed shapes and validity masks and never syncs the host, so it can later
 be captured as one CUDA graph. On the card it launches one FAST kernel,
-one orient-and-describe kernel and two fused Hamming row-minimum kernels
-(``hamming_gated_min``, one per match).
+one orient-and-describe kernel, two fused Hamming row-minimum kernels
+(``hamming_gated_min``, one per match) and two pose LM kernels (one per
+``optimize_pose``, over the matched rows only).
 
 The same module tracks B sequences at once when every per-sequence input
 carries a leading [B] (``K`` shared): the multi-sequence runners' step
 (``parallel/multiseq.py``, the JAX package's ``vmap`` of this step). It
-still launches 1 FAST, 1 orient-and-describe and 2 Hamming kernels a
-frame, whatever B is.
+still launches 1 FAST, 1 orient-and-describe, 2 Hamming and 2 pose LM
+kernels a frame, whatever B is.
 
 Its spans (``utils/profiling``): ``step.extract`` around the extraction,
 ``step.match`` around each projection match, with the counters
 ``step.visible_slots`` (the match's ``n_visible``) and
 ``step.projected_slots`` (the map slots it projected), and ``step.lm``
-around each pose LM.
+around each pose LM, with the counter ``step.lm_rows`` (the matched rows
+it iterates, the match's ``n_matches``).
 """
 
 from __future__ import annotations
@@ -124,6 +126,7 @@ class TrackingStep(nn.Module):
 
         def optimize(R, t, pm):
             with profiling.span("step.lm"):
+                profiling.count("step.lm_rows", pm.n_matches)
                 safe = pm.kp_for_point.clamp_min(0).to(torch.int64)
                 inv_s2 = 1.0 / scale ** (2.0 * kps.octave.gather(-1, safe).to(torch.float32))
                 return optimize_pose(

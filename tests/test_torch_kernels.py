@@ -30,6 +30,7 @@ from orb_slam_tracking_tpu.ops.pallas_kernels import (
 from orb_slam_tracking_tpu.ops.pyramid import reflect_pad as jx_reflect_pad
 from orb_slam_tracking_tpu_torch import kernels
 from orb_slam_tracking_tpu_torch.ops import brief, describe, fast, hamming, orientation, pattern
+from orb_slam_tracking_tpu_torch.optim import pose_opt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -186,15 +187,20 @@ def test_launch_counters_stay_zero_on_cpu(rng):
     xy = torch.full((3, 2), 11.0)
     describe.orient_describe(torch.from_numpy(img), torch.from_numpy(img), yx, yx, xy,
                              torch.zeros((2, 512)), pattern.umax_table())
+    eye = torch.eye(3)
+    pose_opt.optimize_pose(eye, torch.zeros(3), torch.ones((4, 3)), torch.zeros((4, 2)),
+                           torch.ones(4), torch.ones(4, dtype=torch.bool), eye, rounds=1,
+                           iters_per_round=1)
     assert fast.fast_score.launches == 0
     assert brief.brief_words.launches == 0
     assert hamming.hamming_matrix.launches == 0
     assert orientation.moments_at.launches == 0
     assert describe.orient_describe.launches == 0
+    assert pose_opt.optimize_pose.launches == 0
 
 
 @pytest.mark.parametrize("call", ["fast", "brief", "hamming", "hamming_gated", "moments",
-                                  "orient_describe"])
+                                  "orient_describe", "pose_lm"])
 def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
     """Only a CPU tensor may take the plain version; any other device goes
     to the kernel's checks, which refuse it."""
@@ -220,6 +226,13 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors(call):
             i = torch.empty((3,), dtype=torch.int32, device="meta")
             xy = torch.empty((3, 2), device="meta")
             hamming.hamming_gated_min(desc, desc, xy, f, b, i, i, b, xy, f, i, b)
+        elif call == "pose_lm":
+            m = torch.empty((3, 3), device="meta")
+            pose_opt.optimize_pose(m, torch.empty((3,), device="meta"),
+                                   torch.empty((5, 3), device="meta"),
+                                   torch.empty((5, 2), device="meta"),
+                                   torch.empty((5,), device="meta"),
+                                   torch.empty((5,), dtype=torch.bool, device="meta"), m)
         else:
             hamming.hamming_matrix(desc, desc)
 
@@ -230,10 +243,14 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
     assert kernels.BUILD_ROOT.parent.name == "build"
     assert {p.name for p in kernels._sources()} >= {
         "fast_score.cu", "brief_words.cu", "hamming_matrix.cu", "moments_at.cu",
-        "orient_describe.cu", "disc_moments.cuh"}
+        "orient_describe.cu", "disc_moments.cuh", "pose_lm.cu"}
     assert set(kernels._SIGNATURES) == {
         "osltt_fast_score", "osltt_brief_words", "osltt_hamming_matrix",
-        "osltt_hamming_gated_min", "osltt_moments_at", "osltt_orient_describe"}
+        "osltt_hamming_gated_min", "osltt_moments_at", "osltt_orient_describe",
+        "osltt_pose_lm"}
+    assert kernels.SOURCE_FLAGS == {"pose_lm.cu": ("-fmad=false",)}
+    monkeypatch.setattr(kernels, "SOURCE_FLAGS", {})
+    assert kernels.build_dir() != d  # a source's own flags key the build too
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -8,7 +8,7 @@ on the profiler's own clock (a span written into ``device_trace``'s
 Chrome trace encloses the aten op it wraps). The layers: the batched
 ``TrackingStep`` under the sequence runner records one ``step.extract``,
 two ``step.match`` and two ``step.lm`` a frame, with the matches' visible
-slots counted; ``bundle_adjust`` one ``ba.linearize``, ``ba.schur`` and
+slots and the LM's matched rows counted; ``bundle_adjust`` one ``ba.linearize``, ``ba.schur`` and
 ``ba.factor`` an iteration, with the Schur blocks it computes and those a
 count by brute force finds nonzero; and tracing leaves every answer the
 same bits. The ``card`` tests (skipped without CUDA) hold the spans'
@@ -214,11 +214,12 @@ def _runner():
 
 
 def test_tracking_step_spans_and_counters(monkeypatch):
-    seen, real = [], fused_step.search_by_projection
+    seen, rows, real = [], [], fused_step.search_by_projection
 
     def search(*a, **k):
         pm = real(*a, **k)
         seen.append(pm.n_visible.clone())
+        rows.append(pm.n_matches.clone())
         return pm
 
     monkeypatch.setattr(fused_step, "search_by_projection", search)
@@ -235,6 +236,7 @@ def test_tracking_step_spans_and_counters(monkeypatch):
     assert len(seen) == 2 * _T
     assert c["step.visible_slots"] == int(torch.stack(seen).sum()) > 0
     assert c["step.projected_slots"] == 2 * _T * _B * _P
+    assert c["step.lm_rows"] == int(torch.stack(rows).sum()) > 0
 
 
 def test_bundle_adjust_spans_and_schur_fill():
